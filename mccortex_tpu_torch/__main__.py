@@ -1,0 +1,8 @@
+"""`python -m mccortex_tpu_torch <command> ...`"""
+
+import sys
+
+from .cli.main import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,34 @@
+"""mctx-torch: command dispatcher of the port (counterpart of
+mccortex_tpu/cli/main.py).  `mctx-torch` or `python -m
+mccortex_tpu_torch` with no arguments prints the command table."""
+
+import sys
+
+
+def _commands() -> dict:
+    from . import commands
+    return {"build": (commands.cmd_build, "reads -> coloured .ctx graph")}
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    commands = _commands()
+    if not argv or argv[0] in ("-h", "--help"):
+        print("usage: mctx-torch <command> [args]\n\ncommands:")
+        for name, (_, summary) in sorted(commands.items()):
+            print(f"  {name:12s} {summary}")
+        return 0
+    cmd = argv[0]
+    if cmd not in commands:
+        print(f"mctx-torch: unknown command '{cmd}' (only build is ported "
+              f"yet)", file=sys.stderr)
+        return 1
+    try:
+        return commands[cmd][0](argv[1:]) or 0
+    except (ValueError, OSError) as e:
+        print(f"mctx-torch {cmd}: error: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
