@@ -7,16 +7,30 @@ Run from the root of a checkout, on a machine with a CUDA device, nvcc
 and PyTorch built for CUDA.  Phases, each fatal on failure:
 
 1. probe: torch and CUDA versions, the card's name and power limit;
-2. build the three kernels (csrc/*.cu) with nvcc;
+2. build the four kernels (csrc/*.cu) with nvcc, in parallel;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes the build path gives it, exact (integer outputs: tolerance 0),
-   with CUDA-event times of both;
-4. the main path at real size: `mctx-torch build -k 31` (the CLI entry
+   shapes the main path gives it, exact (integer outputs: tolerance 0),
+   with CUDA-event times of both.  The lookup kernel runs at W=1 and
+   W=2 against a store of the E. coli graph's size (9.2M keys), with
+   present, absent and sentinel queries, at a walker's batch (4096) and
+   a bulk batch (Q = N); beside it the plain bucket-row gather
+   (lookup_planar) and the sort-merge join (lookup_join) are timed, and
+   the kernel's row bytes/s are set against the card's 3.35 TB/s;
+4. the build path at real size: `mctx-torch build -k 31` (the CLI entry
    point, called in-process so the kernels' launch counts are visible)
    on 20x of 150 bp reads of a synthetic 4.6 Mb E. coli-sized genome;
    the .ctx is held against a numpy count of the reads' kmers;
+4b. the graph path on that .ctx: `mctx-torch clean -T -U`, then
+   `mctx-torch unitigs` of the cleaned graph, each of which must launch
+   the lookup kernel; the cleaned graph must be a subset of the raw one
+   with its coverage, hold every kmer its edges point at, and be smaller;
+   the unitigs' kmers must be the cleaned kmer set, each once.  Prints
+   each command's wall time and its split (table build on the host,
+   adjacency, pointer doubling, extraction), the cleaning threshold and
+   the genome and non-genome kmers kept;
 5. byte identity: a 2-colour build of a 200 kb genome at k=31 and k=63,
-   on the card and with the plain versions on the CPU.
+   then at k=31 `clean -T -U`, `unitigs` and `unitigs --gfa`, each on
+   the card and with the plain versions on the CPU.
 
 Prints a JSON line of per-kernel results, then `{"ok": true, "device":
 ...}` as its last line.  Exits non-zero, printing no result, when CUDA
@@ -39,6 +53,9 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 K_MAIN = 31
+BUILD_KERNELS = ("frontend", "segreduce", "mergepath")
+CHAR_CODES = np.full(256, 4, np.uint8)
+CHAR_CODES[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
 
 
 def fail(msg: str):
@@ -241,6 +258,94 @@ def phase_kernels(torch, results):
     results["mergepath"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
 
 
+N_STORE = 9_165_696      # distinct kmers of the phase-4 E. coli build
+HBM_BYTES_S = 3.35e12     # H100 SXM device memory, data sheet
+
+
+def lookup_store(rng, n: int, W: int) -> np.ndarray:
+    """n sorted, unique, valid (word 0 < 2**62) random keys (n, W)."""
+    if W == 1:
+        kv = np.unique(rng.integers(0, 1 << 62, size=n + n // 50,
+                                    dtype=np.uint64))
+        return np.sort(rng.choice(kv, n, replace=False))[:, None]
+    w = np.stack([rng.integers(0, 1 << 62, size=n, dtype=np.uint64),
+                  rng.integers(0, 2**64, size=n, dtype=np.uint64)], axis=1)
+    return w[np.lexsort(w.T[::-1])]
+
+
+def lookup_queries(rng, keys: np.ndarray, Q: int) -> np.ndarray:
+    """60 % present, 35 % absent (random words), 5 % sentinel."""
+    W = keys.shape[1]
+    q = keys[rng.integers(0, len(keys), Q)]
+    r = rng.random(Q)
+    absent = r >= 0.6
+    q[absent] = rng.integers(0, 1 << 62, size=(int(absent.sum()), W),
+                             dtype=np.uint64)
+    q[r >= 0.95] = np.uint64(2**64 - 1)
+    return q
+
+
+def phase_lookup(torch, results):
+    from mccortex_tpu_torch.ops import hashidx
+    from mccortex_tpu_torch.ops import sorted as sops
+    from mccortex_tpu_torch.ops.kernels import lookup
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    for W in (1, 2):
+        t0 = time.perf_counter()
+        keys_np = lookup_store(rng, N_STORE, W)
+        t128, b128 = lookup.build_table128(keys_np)
+        tplan, bplan = hashidx.build_table(keys_np)
+        keys = torch.from_numpy(keys_np.view(np.int64)).to(dev)
+        t128 = torch.from_numpy(t128.view(np.int32)).to(dev)
+        tplan = torch.from_numpy(tplan.view(np.int32)).to(dev)
+        print(f"lookup W={W}: store of {N_STORE} keys, 128-lane table "
+              f"2^{b128} rows, planar table 2^{bplan} rows (host build "
+              f"{time.perf_counter() - t0:.1f}s)")
+        for Q in (4096, N_STORE):
+            q = torch.from_numpy(lookup_queries(rng, keys_np, Q).view(
+                np.int64)).to(dev)
+            idx, found = lookup.lookup_fused(t128, q, b128, W)
+            want = lookup.lookup_plain(t128, q, b128, W)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(torch, idx, want[0]),
+                      max_abs_err(torch, found, want[1]))
+            if err:
+                fail(f"lookup W={W} Q={Q}: kernel != plain "
+                     f"(max abs err {err})")
+            hit = found.nonzero()[:, 0]
+            if not torch.equal(keys[idx[hit].long()], q[hit]):
+                fail(f"lookup W={W} Q={Q}: a found row holds another key")
+            for other in (hashidx.lookup_planar(tplan, q, bplan, W),
+                          sops.lookup_join(keys, q)):
+                if not (torch.equal(other[0], idx) and
+                        torch.equal(other[1], found)):
+                    fail(f"lookup W={W} Q={Q}: planar or join disagrees")
+            reps = 20 if Q < N_STORE else 10
+            ms = time_ms(torch, lambda: lookup.lookup_fused(t128, q, b128, W),
+                         reps)
+            plain = time_ms(torch,
+                            lambda: lookup.lookup_plain(t128, q, b128, W), 5)
+            planar = time_ms(
+                torch, lambda: hashidx.lookup_planar(tplan, q, bplan, W), 5)
+            join = time_ms(torch, lambda: sops.lookup_join(keys, q), 3)
+            # sentinel queries skip the probe: rows read = non-sentinel
+            rows = int((q != -1).any(dim=1).sum())
+            rate = rows * 512 / (ms * 1e-3)
+            print(f"lookup W={W} Q={Q}: exact ({int(found.sum())} found); "
+                  f"kernel {ms:.4f} ms ({Q / ms / 1e3:.2f}M lookups/s, row "
+                  f"bytes {rate / 1e9:.1f} GB/s = "
+                  f"{100 * rate / HBM_BYTES_S:.1f} % of 3.35 TB/s), plain "
+                  f"{plain:.4f} ms, lookup_planar {planar:.4f} ms, "
+                  f"lookup_join {join:.4f} ms")
+            if W == 1 and Q == N_STORE:
+                results["lookup"] = dict(max_abs_err=err, ms=ms,
+                                         plain_ms=plain)
+        del keys, t128, tplan, q, idx, found, want
+        torch.cuda.empty_cache()
+
+
 def run_cli(argv):
     """The port's CLI entry point in-process; returns its stderr."""
     from mccortex_tpu_torch.cli.main import main
@@ -274,7 +379,7 @@ def phase_main_path(torch, tmp, card):
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     print(f"launches on the main path: {json.dumps(launches)}")
-    for name in _build.KERNELS:
+    for name in BUILD_KERNELS:
         if launches.get(name, 0) <= 0:
             fail(f"the main path never launched the {name} kernel")
 
@@ -313,7 +418,117 @@ def phase_main_path(torch, tmp, card):
     print(f"main path on {card}: mctx-torch build wall {wall:.3f}s "
           f"({obs / wall / 1e6:.2f}M kmer-obs/s), graph build {build_s:.3f}s "
           f"({obs / build_s / 1e6:.2f}M kmer-obs/s), {obs} kmer-obs")
-    return launches
+    return launches, genome, out
+
+
+def revcomp_np(x: np.ndarray, k: int) -> np.ndarray:
+    """Reverse complement of k <= 31 kmers in uint64."""
+    x = ~x
+    for sh, m in ((2, 0x3333333333333333), (4, 0x0F0F0F0F0F0F0F0F),
+                  (8, 0x00FF00FF00FF00FF), (16, 0x0000FFFF0000FFFF)):
+        m = np.uint64(m)
+        x = ((x & m) << np.uint64(sh)) | ((x >> np.uint64(sh)) & m)
+    x = (x << np.uint64(32)) | (x >> np.uint64(32))
+    return x >> np.uint64(64 - 2 * k)
+
+
+def read_fasta_seqs(path: str) -> list:
+    with open(path, "rb") as fh:
+        return [l.strip() for l in fh if not l.startswith(b">")]
+
+
+def check_unitig_partition(seqs: list, keys: np.ndarray, k: int) -> int:
+    """The canonical kmers of all unitigs, taken together, are exactly
+    the sorted key set, each once.  Returns the number of unitigs."""
+    lens = np.array([len(s) for s in seqs], np.int64)
+    if (lens < k).any():
+        fail("a unitig is shorter than k")
+    codes = CHAR_CODES[np.frombuffer(b"".join(seqs), np.uint8)]
+    if (codes > 3).any():
+        fail("a unitig holds a base other than ACGT")
+    km = canonical_kmers_np(codes[None, :], k)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    inside = np.zeros(len(km), bool)
+    nk = lens - k + 1
+    starts = np.repeat(offs[:-1], nk) + (
+        np.arange(nk.sum()) - np.repeat(np.cumsum(nk) - nk, nk))
+    inside[starts] = True
+    got = np.sort(km[inside])
+    if len(got) != len(keys) or not np.array_equal(got, keys):
+        fail(f"the unitigs' {len(got)} kmers are not the graph's "
+             f"{len(keys)} kmers, each once")
+    return len(seqs)
+
+
+def check_edges_closed(keys: np.ndarray, edges: np.ndarray, k: int):
+    """Every edge bit points at a kmer of the graph (k <= 31, 1 colour
+    or the union of colours)."""
+    ue = np.bitwise_or.reduce(edges, axis=1)
+    mask = np.uint64((1 << (2 * k)) - 1)
+    for o in (0, 1):
+        okm = keys if o == 0 else revcomp_np(keys, k)
+        for n in range(4):
+            rows = np.nonzero((ue >> (n + 4 * o)) & 1)[0]
+            nxt = ((okm[rows] << np.uint64(2)) | np.uint64(n)) & mask
+            nkey = np.minimum(nxt, revcomp_np(nxt, k))
+            pos = np.searchsorted(keys, nkey)
+            if not (pos < len(keys)).all() or \
+                    not np.array_equal(keys[pos], nkey):
+                fail(f"an edge (orient {o}, base {n}) of the cleaned graph "
+                     f"points at a kmer it does not hold")
+
+
+def time_split(log: str) -> str:
+    m = re.findall(r"time split: (.*)", log)
+    return m[-1] if m else "missing"
+
+
+def phase_graph_path(torch, tmp, card, raw, genome):
+    """4b: clean and unitigs on the E. coli graph, through the CLI."""
+    from mccortex_tpu_torch.io import ctx as ctxio
+    from mccortex_tpu_torch.ops.kernels import _build
+
+    cln = os.path.join(tmp, "clean.ctx")
+    fa = os.path.join(tmp, "unitigs.fa")
+    walls, lookups = {}, 0
+    for name, argv in (("clean", ["clean", "-T", "-U", "-o", cln, raw]),
+                       ("unitigs", ["unitigs", "-o", fa, cln])):
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        log = run_cli(argv + ["--device", "cuda"])
+        walls[name] = time.perf_counter() - t0
+        launched = dict(_build.LAUNCHES)
+        print(f"launches in mctx-torch {name}: {json.dumps(launched)}")
+        if launched.get("lookup", 0) <= 0:
+            fail(f"mctx-torch {name} never launched the lookup kernel")
+        lookups += launched["lookup"]
+        print(f"graph path on {card}: mctx-torch {name} wall "
+              f"{walls[name]:.3f}s; split: {time_split(log)}")
+        if name == "clean":
+            m = re.search(r"auto cleaning threshold: <(\d+)", log)
+            if not m:
+                fail("clean did not pick a coverage threshold")
+            thresh = int(m.group(1))
+
+    _h, rkeys, rcovg, _re = ctxio.read_ctx(raw)
+    _h, ckeys, ccovg, cedges = ctxio.read_ctx(cln)
+    rk, ck = rkeys[:, 0], ckeys[:, 0]
+    pos = np.searchsorted(rk, ck)
+    if not (pos < len(rk)).all() or not np.array_equal(rk[pos], ck):
+        fail("the cleaned graph holds a kmer the raw graph does not")
+    if not np.array_equal(rcovg[pos], ccovg):
+        fail("cleaning changed the coverage of a kept kmer")
+    if not len(ck) < len(rk):
+        fail(f"clean kept all {len(rk)} kmers")
+    check_edges_closed(ck, cedges, K_MAIN)
+    nu = check_unitig_partition(read_fasta_seqs(fa), ck, K_MAIN)
+    gk = np.unique(canonical_kmers_np(genome[None, :], K_MAIN))
+    in_genome = int(np.isin(ck, gk).sum())
+    print(f"graph path: threshold <{thresh}; {len(rk)} -> {len(ck)} kmers, "
+          f"{in_genome} genome kmers kept of {len(gk)}, "
+          f"{len(ck) - in_genome} non-genome kmers kept; {nu} unitigs "
+          f"partition the cleaned kmers exactly; every edge closed")
+    return lookups
 
 
 def phase_byte_identity(torch, tmp):
@@ -342,6 +557,24 @@ def phase_byte_identity(torch, tmp):
             fail(f"k={k}: the CUDA and CPU .ctx files differ")
         print(f"byte identity k={k}: 2-colour .ctx of {len(a)} bytes, "
               f"CUDA == CPU")
+    # clean and unitigs of the k=31 graph, on the card and on the CPU
+    raw = os.path.join(tmp, f"two_k{K_MAIN}_cuda.ctx")
+    for name, argv, out in (
+            ("clean -T -U", ["clean", "-T", "-U", "-o"], "c.ctx"),
+            ("unitigs", ["unitigs", "-o"], "u.fa"),
+            ("unitigs --gfa", ["unitigs", "--gfa", "-o"], "u.gfa")):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"{dev}_{out}")
+            src = os.path.join(tmp, f"{dev}_c.ctx") if out != "c.ctx" else raw
+            t0 = time.perf_counter()
+            run_cli(argv + [path, src, "--device", dev])
+            got[dev] = (open(path, "rb").read(), time.perf_counter() - t0)
+        if got["cuda"][0] != got["cpu"][0]:
+            fail(f"{name}: the CUDA and CPU outputs differ")
+        print(f"byte identity {name} (k={K_MAIN}): {len(got['cpu'][0])} "
+              f"bytes, CUDA == CPU (wall {got['cuda'][1]:.3f}s on the card, "
+              f"{got['cpu'][1]:.3f}s on the CPU)")
 
 
 def main():
@@ -377,16 +610,20 @@ def main():
     # 3. kernels against their plain versions
     results = {}
     phase_kernels(torch, results)
+    phase_lookup(torch, results)
 
     with tempfile.TemporaryDirectory() as tmp:
-        # 4. the main path at real size
-        launches = phase_main_path(torch, tmp, card)
-        # 5. CUDA and CPU builds byte for byte
+        # 4. the build path at real size
+        launches, genome, raw = phase_main_path(torch, tmp, card)
+        # 4b. clean and unitigs on its graph
+        launches["lookup"] = phase_graph_path(torch, tmp, card, raw, genome)
+        # 5. CUDA and CPU outputs byte for byte
         phase_byte_identity(torch, tmp)
 
     replaces = {"frontend": "mccortex_tpu/ops/pallas/frontend.py:203",
                 "segreduce": "mccortex_tpu/ops/pallas/segreduce.py:321",
-                "mergepath": "mccortex_tpu/ops/pallas/mergepath.py:262"}
+                "mergepath": "mccortex_tpu/ops/pallas/mergepath.py:262",
+                "lookup": "mccortex_tpu/ops/pallas/lookup.py:163"}
     kernels = [dict(name=name, route="cuda",
                     source=f"mccortex_tpu_torch/csrc/{name}.cu",
                     replaces=replaces[name], launches=launches[name],

@@ -1,15 +1,18 @@
 """mctx-torch subcommands (counterpart of mccortex_tpu/cli/commands.py).
 
-Ported so far: build.
+Ported so far: build, clean, unitigs.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
+import numpy as np
 import torch
 
+from ..utils import timing
 from .common import add_common, apply_common, check_kmer
 
 # build inputs and options of `mctx build` that this port does not run yet
@@ -109,6 +112,195 @@ def cmd_build(argv):
     ctxio.write_ctx(out, hdr, keys, covg, edges)
     status(f"wrote {len(keys)} kmers x {ncols} colours to {out} in "
            f"{time.perf_counter() - t0:.3f}s")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# clean and unitigs (ref: src/commands/ctx_clean.c, ctx_unitigs.c)
+# ---------------------------------------------------------------------------
+
+def _load_graph(path, device):
+    """Load a .ctx file into a store on `device`."""
+    from ..graph import store as gstore
+    from ..io import ctx as ctxio
+    h, keys, covg, edges = ctxio.read_ctx(path)
+    if len(keys) == 0:
+        return h, gstore.empty(h.kmer_size, 1, h.ncols, device)
+    return h, gstore.from_host(keys, covg, edges, h.kmer_size, device)
+
+
+def _load_graphs(paths, device):
+    """Load one or more .ctx files into a single store, colours
+    concatenated in command-line order (records merged with
+    store.from_records on `device`)."""
+    with timing.span("load", device):
+        if len(paths) == 1:
+            return _load_graph(paths[0], device)
+        from ..graph import store as gstore
+        from ..io import ctx as ctxio
+        loaded = [ctxio.read_ctx(p) for p in paths]
+        k = loaded[0][0].kmer_size
+        for (h, *_), p in zip(loaded, paths):
+            if h.kmer_size != k:
+                raise ValueError(f"{p}: kmer size {h.kmer_size} != {k}")
+        ncols = sum(h.ncols for h, *_ in loaded)
+        allk, allc, alle, ginfo = [], [], [], []
+        off = 0
+        for h, keys, covg, edges in loaded:
+            cw = np.zeros((len(keys), ncols), np.uint32)
+            ew = np.zeros((len(keys), ncols), np.uint8)
+            cw[:, off:off + h.ncols] = covg
+            ew[:, off:off + h.ncols] = edges
+            ginfo.extend(h.ginfo)
+            off += h.ncols
+            allk.append(keys)
+            allc.append(cw)
+            alle.append(ew)
+        g = gstore.from_records(
+            k, torch.from_numpy(np.concatenate(allk).view(np.int64)).to(device),
+            torch.from_numpy(np.concatenate(allc).view(np.int32)).to(device),
+            torch.from_numpy(np.concatenate(alle)).to(device))
+        return ctxio.CtxHeader(kmer_size=k, ginfo=ginfo), g
+
+
+def _save_graph(path, h, g):
+    from ..graph import store as gstore
+    from ..io import ctx as ctxio
+    with timing.span("write"):
+        keys, covg, edges = gstore.to_host(g)
+        ctxio.write_ctx(path, h, keys, covg, edges)
+
+
+def cmd_clean(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch clean")
+    p.add_argument("-T", "--tips", type=int, default=0, nargs="?",
+                   const=-1,
+                   help="clip tips shorter than this (default 2k)")
+    p.add_argument("-U", "--unitigs", type=int, default=0, nargs="?",
+                   const=-1,
+                   help="remove unitigs below covg threshold (default auto)")
+    p.add_argument("-B", "--fallback", type=int, default=0,
+                   help="threshold to use if auto-detection fails")
+    p.add_argument("-N", "--ncols", type=int, default=None,
+                   help="colours to process at once (accepted for parity: "
+                        "the store processes all colours in one pass)")
+    p.add_argument("-S", "--sort", action="store_true",
+                   help="output sorted by kmer (always true here: the "
+                        "store is sorted)")
+    p.add_argument("-c", "--covg-before", default=None,
+                   help="save kmer/unitig coverage histogram CSV before "
+                        "cleaning")
+    p.add_argument("-C", "--covg-after", default=None,
+                   help="coverage histogram CSV after cleaning")
+    p.add_argument("-l", "--len-before", default=None,
+                   help="unitig length histogram CSV before cleaning")
+    p.add_argument("-L", "--len-after", default=None,
+                   help="unitig length histogram CSV after cleaning")
+    p.add_argument("-m", "--memory", default=None, help="not yet ported")
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("ctx", nargs="+")
+    add_common(p)
+    args = p.parse_args(argv)
+    if args.memory:
+        _not_ported(p, "-m/--memory")
+    status, device = apply_common(args, args.out, args.covg_before,
+                                  args.covg_after, args.len_before,
+                                  args.len_after)
+    timing.SPANS.clear()
+    from ..graph import clean as gclean
+    h, g = _load_graphs(args.ctx, device)
+    k = h.kmer_size
+
+    if args.covg_before or args.len_before:
+        kh, uh, lh = gclean.cleaning_histograms(g)
+        if args.covg_before:
+            gclean.write_covg_csv(args.covg_before, kh, uh)
+            status(f"saved coverage histogram: {args.covg_before}")
+        if args.len_before:
+            gclean.write_len_csv(args.len_before, lh, k)
+            status(f"saved length histogram: {args.len_before}")
+
+    tips = (2 * k) if args.tips == -1 else args.tips
+    thresh = args.unitigs
+    if thresh == -1:  # auto threshold from histogram fit
+        hist = gclean.covg_histogram(g)
+        cutoff, a, b, fp, fn = gclean.pick_kmer_threshold(hist)
+        if cutoff < 0:
+            if args.fallback > 0:
+                cutoff = args.fallback
+                status(f"auto threshold failed; using fallback {cutoff}")
+            else:
+                p.error("could not pick cleaning threshold "
+                        "(use --fallback <T>)")
+        else:
+            status(f"auto cleaning threshold: <{cutoff} "
+                   f"(alpha={a:.2f} beta={b:.2f} fp={fp:.4f} fn={fn:.4f})")
+        thresh = cutoff
+
+    before = g.n
+    g2 = gclean.clean_graph(g, covg_threshold=max(thresh, 0),
+                            min_keep_tip=tips)
+    status(f"cleaned: {before} -> {g2.n} kmers "
+           f"(tips<{tips}, covg<{thresh})")
+    if args.covg_after or args.len_after:
+        kh, uh, lh = gclean.cleaning_histograms(g2)
+        if args.covg_after:
+            gclean.write_covg_csv(args.covg_after, kh, uh)
+            status(f"saved coverage histogram: {args.covg_after}")
+        if args.len_after:
+            gclean.write_len_csv(args.len_after, lh, k)
+            status(f"saved length histogram: {args.len_after}")
+    for gi in h.ginfo:
+        if tips:
+            gi.cleaning.cleaned_tips = True
+        if thresh > 0:
+            gi.cleaning.cleaned_unitigs = True
+            gi.cleaning.clean_unitigs_thresh = max(thresh, 0)
+    _save_graph(args.out, h, g2)
+    status(f"time split: {timing.summary()}")
+    return 0
+
+
+def cmd_unitigs(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch unitigs")
+    p.add_argument("-F", "--fasta", action="store_true",
+                   help="FASTA output (default)")
+    p.add_argument("-g", "--gfa", action="store_true",
+                   help="GFA v1 output")
+    p.add_argument("-d", "--dot", "--graphviz", action="store_true",
+                   help="graphviz output")
+    p.add_argument("-P", "--point", "--points", action="store_true",
+                   help="with --dot, print unitigs as points")
+    p.add_argument("--min-len", type=int, default=0,
+                   help="minimum unitig length in bases")
+    p.add_argument("-o", "--out", default="-",
+                   help="output file [default: STDOUT]")
+    p.add_argument("ctx", nargs="+")
+    add_common(p)
+    args = p.parse_args(argv)
+    status, device = apply_common(args, args.out)
+    timing.SPANS.clear()
+    from ..graph import unitigs as gu
+    h, g = _load_graphs(args.ctx, device)
+    seqs = gu.extract_unitigs(g)
+    seqs = [s for s in seqs if len(s) >= args.min_len]
+    with timing.span("write"):
+        fh = sys.stdout if args.out == "-" else open(args.out, "w")
+        try:
+            if args.gfa or args.dot:
+                from ..graph import unitig_graph as ug
+                if args.gfa:
+                    ug.write_gfa(fh, g, seqs)
+                else:
+                    ug.write_dot(fh, g, seqs, points=args.point)
+            else:
+                for i, s in enumerate(seqs):
+                    fh.write(f">unitig{i} length={len(s)}\n{s}\n")
+        finally:
+            if fh is not sys.stdout:
+                fh.close()
+    status(f"{len(seqs)} unitigs of {g.n} kmers")
+    status(f"time split: {timing.summary()}")
     return 0
 
 

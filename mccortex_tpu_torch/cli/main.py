@@ -7,7 +7,11 @@ import sys
 
 def _commands() -> dict:
     from . import commands
-    return {"build": (commands.cmd_build, "reads -> coloured .ctx graph")}
+    return {"build": (commands.cmd_build, "reads -> coloured .ctx graph"),
+            "clean": (commands.cmd_clean,
+                      "remove tips + low-coverage unitigs"),
+            "unitigs": (commands.cmd_unitigs,
+                        "dump unitigs as FASTA/GFA/DOT")}
 
 
 def main(argv=None):
@@ -20,8 +24,8 @@ def main(argv=None):
         return 0
     cmd = argv[0]
     if cmd not in commands:
-        print(f"mctx-torch: unknown command '{cmd}' (only build is ported "
-              f"yet)", file=sys.stderr)
+        print(f"mctx-torch: unknown command '{cmd}' (ported so far: "
+              f"{', '.join(commands)})", file=sys.stderr)
         return 1
     try:
         return commands[cmd][0](argv[1:]) or 0

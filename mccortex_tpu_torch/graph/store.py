@@ -81,6 +81,64 @@ def from_host(keys_u64: np.ndarray, covg: np.ndarray, edges: np.ndarray,
                    n=keys.shape[0], k=k)
 
 
+def from_records(k: int, keys: torch.Tensor, covg: torch.Tensor,
+                 edges: torch.Tensor, capacity: int | None = None) -> DBGraph:
+    """Store from unaggregated (key, covg, edges) records: keys (N, W)
+    int64, covg (N, C) int32, edges (N, C) uint8, on one device.  Records
+    with sentinel keys are ignored; capacity defaults to N.  Built as
+    build._merge folds: a stable sort of the key planes, then the
+    segreduce kernel (covg summed modulo 2**32, edges OR-ed)."""
+    from ..ops import kmer as kops
+    from ..ops.kernels import segreduce
+    check_k(k)
+    N, W = keys.shape
+    C = covg.shape[1]
+    capacity = capacity or N
+    kp = kops.to_planes(keys)
+    planes = torch.cat([kp, covg.T.to(torch.int32), edges.T.to(torch.int32)])
+    planes = planes[:, sops.argsort_planes(kp)]
+    okeys, _count, osums, oors, n = segreduce.segreduce_compact_multi(
+        planes[:2 * W], planes[2 * W:2 * W + C], planes[2 * W + C:])
+    g = empty(k, capacity, C, keys.device)
+    m = min(N, capacity)
+    g.keys[:m] = kops.from_planes(okeys[:, :m])
+    g.covg[:m] = osums[:, :m].T
+    g.edges[:m] = oors[:, :m].T.to(torch.uint8)
+    g.n = min(int(n), capacity)
+    return g
+
+
+def lookup(g: DBGraph, query_keys: torch.Tensor):
+    """Batched lookup: (idx, found) per query key (..., W), through the
+    hashed-bucket index (ops/hashidx.py)."""
+    from ..ops import hashidx
+    return hashidx.lookup(g.keys, query_keys)
+
+
+def union_edges(g: DBGraph) -> torch.Tensor:
+    """Per-kmer edge byte OR-ed across colours (population edges)."""
+    from . import edges as E
+    return E.union_colours(g.edges)
+
+
+_uedges_cache: dict = {}
+
+
+def cached_union_edges(g: DBGraph) -> torch.Tensor:
+    """union_edges memoised on the edges tensor (checked with `is`), so
+    the identity-keyed caches downstream (unitigs.cached_unitig_view)
+    can hit."""
+    ck = id(g.edges)
+    hit = _uedges_cache.get(ck)
+    if hit is not None and hit[0] is g.edges:
+        return hit[1]
+    ue = union_edges(g)
+    if len(_uedges_cache) > 4:
+        _uedges_cache.clear()
+    _uedges_cache[ck] = (g.edges, ue)
+    return ue
+
+
 def compacted(g: DBGraph, align: int = 1 << 16) -> DBGraph:
     """Slice the store down to its live prefix, keeping the capacity a
     multiple of `align`."""

@@ -150,6 +150,63 @@ def canonical(kmers: torch.Tensor, k: int):
     return key, rc_is_key.to(torch.uint8)
 
 
+def oriented(keys: torch.Tensor, orient: torch.Tensor, k: int) -> torch.Tensor:
+    """Kmer as read in the given orientation: key if FORWARD else revcmp."""
+    rc = revcmp(keys, k)
+    return torch.where(orient[..., None].to(torch.bool), rc, keys)
+
+
+def shift_append(kmers: torch.Tensor, base: torch.Tensor, k: int
+                 ) -> torch.Tensor:
+    """kmer<<2 | base, masked to 2k bits."""
+    y = mw_shift_left(kmers, 2)
+    y[..., -1] |= base.to(torch.int64)
+    return _mask_topbits(y, k)
+
+
+def _mask_topbits(kmers: torch.Tensor, k: int) -> torch.Tensor:
+    """Zero any bits above 2k."""
+    W = kmers.shape[-1]
+    top_bits = 2 * k - 64 * (W - 1)
+    mask = (1 << top_bits) - 1 if top_bits < 64 else -1
+    y = kmers.clone()
+    y[..., 0] &= mask
+    return y
+
+
+# ---------------------------------------------------------------------------
+# hashing: splitmix64 finaliser on int64 bit views (multiplication and
+# addition wrap modulo 2**64 like uint64)
+# ---------------------------------------------------------------------------
+
+def _i64(v: int) -> int:
+    """Signed int64 bit pattern of an unsigned 64-bit constant."""
+    v &= (1 << 64) - 1
+    return v - (1 << 64) if v >> 63 else v
+
+
+_GOLD = _i64(0x9E3779B97F4A7C15)
+_SM_C1 = _i64(0xBF58476D1CE4E5B9)
+_SM_C2 = _i64(0x94D049BB133111EB)
+
+
+def splitmix64(x: torch.Tensor) -> torch.Tensor:
+    x = x + _GOLD
+    x = (x ^ srl(x, 30)) * _SM_C1
+    x = (x ^ srl(x, 27)) * _SM_C2
+    return x ^ srl(x, 31)
+
+
+def kmer_hash(keys: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """64-bit hash of packed kmers (..., W) -> (...,) int64 bit views;
+    equal bit for bit to mccortex_tpu.ops.kmer.kmer_hash."""
+    W = keys.shape[-1]
+    h = splitmix64(keys[..., 0] ^ _i64(seed * 0x9E3779B97F4A7C15))
+    for w in range(1, W):
+        h = splitmix64(h ^ keys[..., w])
+    return h
+
+
 # ---------------------------------------------------------------------------
 # rolling extraction
 # ---------------------------------------------------------------------------

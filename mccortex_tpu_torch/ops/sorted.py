@@ -56,6 +56,49 @@ def sort_by_key(keys: torch.Tensor, *vals):
     return (keys[perm],) + tuple(v[perm] for v in vals)
 
 
+def lookup_join(sorted_keys: torch.Tensor, queries: torch.Tensor,
+                variant: str = "lax"):
+    """Bulk exact lookup by sort-merge join: (idx int32, found bool) per
+    query (..., W), idx the store row when found else 0.
+
+    One stable sort of the store+query key words; a query is found iff
+    its run of equal keys holds a store row (store keys are unique, so
+    at most one): the run's max of (is_store ? pos : -1), which is what
+    the JAX package's forward and backward segmented max scans give;
+    then the queries are put back in their order by a scatter.
+    sorted_keys (N, W) ascending with sentinel padding; sentinel queries
+    are never found.
+    """
+    if variant == "mp":
+        raise NotImplementedError(
+            "lookup_join(variant='mp') is not yet ported (ROADMAP Queue 2): "
+            "it needs the sort_planes_mp kernel")
+    if variant != "lax":
+        raise ValueError(f"unknown lookup_join variant {variant!r}")
+    N, W = sorted_keys.shape
+    q = queries.reshape(-1, W)
+    Q = q.shape[0]
+    dev = q.device
+    allk = torch.cat([sorted_keys, q])
+    perm = _lsd_perm([allk[:, w] ^ SIGN for w in range(W)], N + Q, dev)
+    mk = allk[perm]
+    is_store = perm < N
+    bound = torch.ones(N + Q, dtype=torch.bool, device=dev)
+    bound[1:] = (mk[1:] != mk[:-1]).any(dim=-1)
+    run = torch.cumsum(bound, 0) - 1
+    val = torch.where(is_store, perm, -1)
+    best = torch.full((N + Q,), -1, dtype=torch.int64, device=dev)
+    best = best.scatter_reduce(0, run, val, "amax")[run]
+    found = (best >= 0) & ~is_store & ~is_sentinel(mk)
+    qpos = perm[~is_store] - N
+    idx = torch.empty(Q, dtype=torch.int32, device=dev)
+    fnd = torch.empty(Q, dtype=torch.bool, device=dev)
+    idx[qpos] = torch.where(found, best, 0)[~is_store].to(torch.int32)
+    fnd[qpos] = found[~is_store]
+    return (idx.reshape(queries.shape[:-1]),
+            fnd.reshape(queries.shape[:-1]))
+
+
 def segmented_or(vals: torch.Tensor, seg: torch.Tensor,
                  num_out: int) -> torch.Tensor:
     """Bitwise OR of vals (N, C) over ascending segment ids seg (N,):
