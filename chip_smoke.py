@@ -7,19 +7,32 @@ Run from the root of a checkout, on a machine with a CUDA device, nvcc
 and PyTorch built for CUDA.  Phases, each fatal on failure:
 
 1. probe: torch and CUDA versions, the card's name and power limit;
-2. build the four kernels (csrc/*.cu) with nvcc, in parallel;
+2. build the kernels (csrc/*.cu) with nvcc, in parallel;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, exact (integer outputs: tolerance 0),
-   with CUDA-event times of both.  The lookup kernel runs at W=1 and
-   W=2 against a store of the E. coli graph's size (9.2M keys), with
-   present, absent and sentinel queries, at a walker's batch (4096) and
-   a bulk batch (Q = N); beside it the plain bucket-row gather
-   (lookup_planar) and the sort-merge join (lookup_join) are timed, and
-   the kernel's row bytes/s are set against the card's 3.35 TB/s;
+   with CUDA-event times of both, the least time the card could take
+   (bound) and, where one PyTorch call computes the same function, that
+   call's time.  The sort kernels (tile sort, tail, butterfly, merge
+   level) and the sorts and merges built from them (sort_planes,
+   merge_planes, sort_planes_mp) run at an epoch's shape (k=31 and k=63)
+   and an LSM merge's (2 x 4M records), to the tie contract of
+   ops/kernels/bitonic.py, beside torch.sort.  The lookup kernel runs at
+   W=1 and W=2 against a store of the E. coli graph's size (9.2M keys),
+   with present, absent and sentinel queries, at a walker's batch (4096)
+   and a bulk batch (Q = N); beside it the plain bucket-row gather
+   (lookup_planar) and the sort-merge joins (lookup_join, variants lax
+   and mp) are timed, and the kernel's row bytes/s are set against the
+   card's 3.35 TB/s;
 4. the build path at real size: `mctx-torch build -k 31` (the CLI entry
    point, called in-process so the kernels' launch counts are visible)
-   on 20x of 150 bp reads of a synthetic 4.6 Mb E. coli-sized genome;
-   the .ctx is held against a numpy count of the reads' kmers;
+   on 20x of 150 bp reads of a synthetic 4.6 Mb E. coli-sized genome,
+   under each sort engine (lax, mp, bitonic); the lax .ctx is held
+   against a numpy count of the reads' kmers and the others against its
+   bytes.  Then the same reads as mate pairs with planted duplicate
+   pairs, built with -p through --seq2 and through --seqi (equal bytes,
+   the removed count and the kmers held against a numpy rendering of
+   the rule), and once more with --intersect against the graph of the
+   genome's own kmers;
 4b. the graph path on that .ctx: `mctx-torch clean -T -U`, then
    `mctx-torch unitigs` of the cleaned graph, each of which must launch
    the lookup kernel; the cleaned graph must be a subset of the raw one
@@ -28,9 +41,10 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    each command's wall time and its split (table build on the host,
    adjacency, pointer doubling, extraction), the cleaning threshold and
    the genome and non-genome kmers kept;
-5. byte identity: a 2-colour build of a 200 kb genome at k=31 and k=63,
-   then at k=31 `clean -T -U`, `unitigs` and `unitigs --gfa`, each on
-   the card and with the plain versions on the CPU.
+5. byte identity: a 2-colour build of a 200 kb genome at k=31 and k=63
+   (k=31 under every sort engine), a --graph + --seq2 -p build, then at
+   k=31 `clean -T -U`, `unitigs` and `unitigs --gfa`, each on the card
+   and with the plain versions on the CPU.
 
 Prints a JSON line of per-kernel results, then `{"ok": true, "device":
 ...}` as its last line.  Exits non-zero, printing no result, when CUDA
@@ -53,7 +67,17 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 K_MAIN = 31
-BUILD_KERNELS = ("frontend", "segreduce", "mergepath")
+GENOME_BP = 4_600_000     # phase 4's genome, E. coli-sized
+MERGE_ITEM = 1 << 22      # records a side of phase 3's LSM merge
+ENGINE_KERNELS = {        # what a build must launch under each sort engine
+    "lax": ("frontend", "segreduce", "mergepath"),
+    "mp": ("frontend", "segreduce", "mergepath", "bitonic_blocksort",
+           "mergelevel"),
+    "bitonic": ("frontend", "segreduce", "bitonic_blocksort", "bitonic_tail",
+                "bitonic_butterfly")}
+HBM_BYTES_S = 3.35e12     # H100 SXM device memory, data sheet
+ALU_OPS_S = 67e12         # H100 SXM 32-bit rate outside the tensor cores
+SIGN = -(1 << 63)
 CHAR_CODES = np.full(256, 4, np.uint8)
 CHAR_CODES[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
 
@@ -88,6 +112,30 @@ def max_abs_err(torch, got, want) -> int:
     if got.numel() == 0:
         return 0
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def row(err, ms, plain_ms, nbytes, nops, library_ms=None) -> dict:
+    """One kernel's entry.  bound_ms is the larger of its bytes (every
+    input read once, every output written once) over the card's memory
+    rate and its 32-bit integer operations (an estimate of the compares,
+    shifts and adds the function needs on these inputs) over the card's
+    rate outside the tensor cores."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = nops / ALU_OPS_S * 1e3
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=library_ms)
+
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def keys64(planes):
+    """The two key planes of (np, M) int32 records packed into one int64
+    word a record, signed order = the planes' unsigned order."""
+    return ((planes[0].long() << 32) | (planes[1].long() & 0xFFFFFFFF)) ^ SIGN
 
 
 # ---------------------------------------------------------------------------
@@ -182,14 +230,15 @@ def phase_kernels(torch, results):
         print(f"frontend k={k} B={B} L={L}: exact; kernel {ms:.4f} ms, "
               f"plain {plain:.4f} ms")
         if k == K_MAIN:
-            results["frontend"] = dict(max_abs_err=err, ms=ms,
-                                       plain_ms=plain)
+            results["frontend"] = row(
+                err, ms, plain, nbytes_of(bases, got),
+                B * L * (16 + 8 * got.shape[0] // 2))
 
     # segreduce, epoch shape: the sorted k=31 records of that batch
     Lv = L - K_MAIN + 1
     planes = torch.stack(frontend.records_fused(bases, K_MAIN))
-    planes = planes[:, :, :Lv].reshape(3, B * Lv)
-    planes = planes[:, sops.argsort_planes(planes[:2])].contiguous()
+    epoch31 = planes[:, :, :Lv].reshape(3, B * Lv).contiguous()
+    planes = epoch31[:, sops.argsort_planes(epoch31[:2])].contiguous()
     keys, ors = planes[:2], planes[2:]
 
     def check_segreduce(label, keys, sums, ors):
@@ -206,7 +255,10 @@ def phase_kernels(torch, results):
                         lambda: segreduce.segreduce_plain(keys, sums, ors), 5)
         print(f"segreduce {label}: n={int(got[4])} exact; kernel {ms:.4f} "
               f"ms, plain {plain:.4f} ms")
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain)
+        # per record: the key compare, the sums and ORs, the scan
+        return row(err, ms, plain, nbytes_of(keys, sums, ors, *got),
+                   keys.shape[1] * (keys.shape[0] + sums.shape[0]
+                                    + ors.shape[0] + 4))
 
     empty = torch.empty((0, keys.shape[1]), dtype=torch.int32, device=dev)
     results["segreduce"] = check_segreduce(
@@ -214,7 +266,7 @@ def phase_kernels(torch, results):
 
     # segreduce, merge shape (W=1, C=2): duplicates across two inputs, one
     # run of 100000 records crossing many blocks, a sentinel tail
-    M = 1 << 22
+    M = MERGE_ITEM
     pool = np.unique(rng.integers(0, 1 << 62, size=M // 2, dtype=np.uint64))
     kv = np.sort(np.concatenate([
         pool[rng.integers(0, len(pool), M - 100_000 - M // 10)],
@@ -231,7 +283,7 @@ def phase_kernels(torch, results):
 
     # merge path: two 4M-record sorted items (2 key planes, covg, edges),
     # unique within each, shared keys across, sentinel tails
-    Mh = 1 << 22
+    Mh = MERGE_ITEM
 
     def item():
         live = Mh - Mh // 8
@@ -255,11 +307,202 @@ def phase_kernels(torch, results):
     plain = time_ms(torch, lambda: mergepath.merge_plain(a, b, 2), 5)
     print(f"mergepath Ma=Mb={Mh} np=4: exact (every plane, element for "
           f"element); kernel {ms:.4f} ms, plain {plain:.4f} ms")
-    results["mergepath"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    ab64 = torch.cat([keys64(a), keys64(b)])
+    lib = time_ms(torch, lambda: torch.sort(ab64, stable=True), 5)
+    print(f"mergepath: torch.sort of the {2 * Mh} concatenated 64-bit keys "
+          f"(the merged order, no gather) {lib:.4f} ms")
+    results["mergepath"] = row(err, ms, plain, nbytes_of(a, b, got),
+                               2 * Mh * MERGE_OPS(2), lib)
+    del ab64
+    return dict(epoch31=epoch31, bases=bases, a=a, b=b)
+
+
+def MERGE_OPS(nk: int) -> int:
+    """Operations per merged record: its share of the diagonal searches
+    and one key compare of nk words on each side."""
+    return 2 * nk + 6
+
+
+def phase_sorts(torch, results, shapes):
+    """The sort kernels and the sorts and merges built from them, against
+    their plain versions, to the tie contract: tile sort, merge level and
+    sort_planes_mp equal a stable sort on every plane; tail, butterfly,
+    sort_planes and merge_planes equal their plain versions (the same
+    network) on every plane, and a stable sort on the key planes."""
+    from mccortex_tpu_torch.graph import build as gbuild
+    from mccortex_tpu_torch.ops import kmer as kops
+    from mccortex_tpu_torch.ops import sorted as sops
+    from mccortex_tpu_torch.ops.kernels import bitonic, mergepath
+
+    T = bitonic.TILE
+    logT = T.bit_length() - 1
+    sorts = []
+
+    def exact(label, got, want):
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        if err:
+            fail(f"{label}: kernel != plain (max abs err {err})")
+        return err
+
+    def stable(x, nk):
+        return x[:, sops.argsort_planes(x[:nk])]
+
+    def cmp_ops(nk):           # one compare-exchange: nk words a side
+        return 2 * nk + 4
+
+    keys63, ebyte, _v = gbuild.reads_to_records(shapes["bases"], 63)
+    Lv = shapes["bases"].shape[1] - 63 + 1
+    epoch63 = torch.cat([
+        kops.to_planes(keys63[:, :Lv].reshape(-1, 2)),
+        ebyte[:, :Lv].reshape(1, -1).to(torch.int32)]).contiguous()
+    for label, x, nk in (("epoch k=31", shapes["epoch31"], 2),
+                         ("epoch k=63", epoch63, 4)):
+        np_, M = x.shape
+        if M % (2 * T):
+            fail(f"{label}: M = {M} is not a multiple of two tiles")
+        tag = f"{label} M={M} np={np_} nk={nk}"
+        lib_ok = nk == 2
+        k64 = keys64(x) if lib_ok else None
+
+        # tile sort, both direction rules
+        want = bitonic.block_sort_plain(x, nk, True, T)
+        err = exact(f"blocksort {tag}", bitonic.block_sort(x, nk, True), want)
+        alt = bitonic.block_sort(x, nk, False)
+        exact(f"blocksort alternating {tag}", alt,
+              bitonic.block_sort_plain(x, nk, False, T))
+        runs = want
+        ms = time_ms(torch, lambda: bitonic.block_sort(x, nk, True))
+        plain = time_ms(torch,
+                        lambda: bitonic.block_sort_plain(x, nk, True, T), 5)
+        lib = time_ms(torch, lambda: torch.sort(k64.view(-1, T), dim=1,
+                                                stable=True), 5) \
+            if lib_ok else None
+        print(f"blocksort {tag}: exact (stable per tile); kernel {ms:.4f} "
+              f"ms, plain {plain:.4f} ms, torch.sort of the tiles' 64-bit "
+              f"keys {lib if lib is None else round(lib, 4)} ms")
+        if lib_ok:
+            results["bitonic_blocksort"] = row(
+                err, ms, plain, 2 * nbytes_of(x),
+                M // 2 * (logT * (logT + 1) // 2) * cmp_ops(nk + 1), lib)
+
+        # tail and butterfly of the first merge stage, on the alternating
+        # tiles
+        bf = bitonic.butterfly(alt.clone(), nk, T, 2 * T, False)
+        err_b = exact(f"butterfly {tag}", bf,
+                      bitonic.cmpx_plain(alt, nk, T, 2 * T, False))
+        err_t = exact(f"tail {tag}", bitonic.tail(bf, nk, 2 * T, False),
+                      bitonic.tail_plain(bf, nk, 2 * T, False, T))
+        # in place: timed on a fresh copy each call, less the copy's time
+        ms_b = time_ms(torch, lambda: bitonic.butterfly(alt.clone(), nk, T,
+                                                        2 * T, False)) \
+            - time_ms(torch, alt.clone)
+        plain_b = time_ms(torch, lambda: bitonic.cmpx_plain(alt, nk, T, 2 * T,
+                                                            False), 5)
+        ms_t = time_ms(torch, lambda: bitonic.tail(bf, nk, 2 * T, False))
+        plain_t = time_ms(torch, lambda: bitonic.tail_plain(bf, nk, 2 * T,
+                                                            False, T), 5)
+        print(f"butterfly {tag} j={T}: exact; kernel {ms_b:.4f} ms, plain "
+              f"{plain_b:.4f} ms")
+        print(f"tail {tag} k={2 * T}: exact; kernel {ms_t:.4f} ms, plain "
+              f"{plain_t:.4f} ms")
+        if lib_ok:
+            results["bitonic_butterfly"] = row(
+                err_b, ms_b, plain_b, 2 * nbytes_of(x), M // 2 * cmp_ops(nk))
+            results["bitonic_tail"] = row(
+                err_t, ms_t, plain_t, 2 * nbytes_of(x),
+                M // 2 * logT * cmp_ops(nk))
+
+        # one merge level over the sorted tiles, and the last of the tree
+        err = exact(f"mergelevel {tag} R={T}", mergepath.merge_level(runs, nk, T),
+                    mergepath.merge_level_plain(runs, nk, T))
+        ms = time_ms(torch, lambda: mergepath.merge_level(runs, nk, T))
+        plain = time_ms(torch,
+                        lambda: mergepath.merge_level_plain(runs, nk, T), 5)
+        r64 = keys64(runs) if lib_ok else None
+        lib = time_ms(torch, lambda: torch.sort(r64.view(-1, 2 * T), dim=1,
+                                                stable=True), 5) \
+            if lib_ok else None
+        print(f"mergelevel {tag} R={T}: exact (stable); kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, torch.sort of the pairs' 64-bit keys "
+              f"{lib if lib is None else round(lib, 4)} ms")
+        if lib_ok:
+            results["mergelevel"] = row(err, ms, plain, 2 * nbytes_of(x),
+                                        M * MERGE_OPS(nk), lib)
+
+        # the whole sorts
+        want = stable(x, nk)
+        exact(f"sort_planes_mp {tag}", mergepath.sort_planes_mp(x, nk), want)
+        exact(f"sort_planes_mp_plain {tag}",
+              mergepath.sort_planes_mp_plain(x, nk), want)
+        Mp = bitonic.padded_length(M)
+        xp = bitonic.pad_planes(x, nk, Mp)
+        got = bitonic.sort_planes(xp, nk)
+        exact(f"sort_planes {tag}", got, bitonic.sort_planes_plain(xp, nk))
+        check_up_to_ties(torch, sops, f"sort_planes {tag}", got[:, :M], want,
+                         nk)
+        ms_mp = time_ms(torch, lambda: mergepath.sort_planes_mp(x, nk), 10)
+        ms_bt = time_ms(torch, lambda: gbuild._sort_planes32(x, nk, "bitonic"),
+                        10)
+        ms_lax = time_ms(torch, lambda: gbuild._sort_planes32(x, nk, "lax"),
+                         10)
+        lib = time_ms(torch, lambda: torch.sort(k64, stable=True), 10) \
+            if lib_ok else None
+        bound = 2 * nbytes_of(x) / HBM_BYTES_S * 1e3
+        print(f"sort {tag}: sort_planes_mp exact (stable, every plane) "
+              f"{ms_mp:.4f} ms; bitonic sort_planes (padded to {Mp}) exact to "
+              f"the tie contract {ms_bt:.4f} ms; the lax engine (torch.sort "
+              f"+ gather) {ms_lax:.4f} ms; torch.sort of the 64-bit keys "
+              f"alone {lib if lib is None else round(lib, 4)} ms; one read "
+              f"and one write of the records {bound:.4f} ms")
+        sorts.append(dict(shape=tag, sort_planes_mp_ms=ms_mp,
+                          bitonic_sort_planes_ms=ms_bt, lax_engine_ms=ms_lax,
+                          torch_sort_keys_ms=lib, bound_ms=bound))
+
+    # an LSM merge: two sorted items of 4M records
+    a, b = shapes["a"], shapes["b"]
+    Mh = a.shape[1]
+    both = torch.cat([a, b], dim=1)
+    want = mergepath.merge_plain(a, b, 2)
+    exact("mergelevel LSM merge", mergepath.merge_level(both, 2, Mh), want)
+    exact("mergelevel LSM merge against its plain version",
+          mergepath.merge_level_plain(both, 2, Mh), want)
+    got = bitonic.merge_planes(a, b, 2)
+    exact("merge_planes LSM merge", got, bitonic.merge_planes_plain(a, b, 2))
+    check_up_to_ties(torch, sops, "merge_planes LSM merge", got, want, 2)
+    ms_ml = time_ms(torch, lambda: mergepath.merge_level(both, 2, Mh), 10)
+    ms_mp = time_ms(torch, lambda: mergepath.merge_path_planes(a, b, 2), 10)
+    ms_bt = time_ms(torch, lambda: bitonic.merge_planes(a, b, 2), 5)
+    bitonic_in = torch.cat([a, b.flip(1)], dim=1)
+    ms_t = time_ms(torch, lambda: bitonic.tail(bitonic_in, 2, 2 * Mh, True),
+                   10)
+    ms_b = time_ms(torch, lambda: bitonic.butterfly(bitonic_in.clone(), 2, Mh,
+                                                    2 * Mh, True), 10) \
+        - time_ms(torch, bitonic_in.clone, 10)
+    bound = 2 * nbytes_of(both) / HBM_BYTES_S * 1e3
+    print(f"LSM merge Ma=Mb={Mh} np=4 nk=2: merge_level (one pair) exact "
+          f"{ms_ml:.4f} ms; merge_path_planes {ms_mp:.4f} ms; bitonic "
+          f"merge_planes exact to the tie contract {ms_bt:.4f} ms (of it "
+          f"one tail {ms_t:.4f} ms, one butterfly {ms_b:.4f} ms); one read "
+          f"and one write {bound:.4f} ms")
+    sorts.append(dict(shape=f"LSM merge Ma=Mb={Mh} np=4 nk=2",
+                      merge_level_ms=ms_ml, merge_path_planes_ms=ms_mp,
+                      bitonic_merge_planes_ms=ms_bt, tail_ms=ms_t,
+                      butterfly_ms=ms_b, bound_ms=bound))
+    return sorts
+
+
+def check_up_to_ties(torch, sops, label, got, want, nk):
+    """Key planes equal element for element; whole records the same
+    multiset within every run of equal keys (both sorted on all planes)."""
+    if not torch.equal(got[:nk], want[:nk]):
+        fail(f"{label}: key planes differ from the stable sort's")
+    if not torch.equal(got[:, sops.argsort_planes(got)],
+                       want[:, sops.argsort_planes(want)]):
+        fail(f"{label}: records differ from the stable sort's as a multiset")
 
 
 N_STORE = 9_165_696      # distinct kmers of the phase-4 E. coli build
-HBM_BYTES_S = 3.35e12     # H100 SXM device memory, data sheet
 
 
 def lookup_store(rng, n: int, W: int) -> np.ndarray:
@@ -287,6 +530,7 @@ def lookup_queries(rng, keys: np.ndarray, Q: int) -> np.ndarray:
 
 def phase_lookup(torch, results):
     from mccortex_tpu_torch.ops import hashidx
+    from mccortex_tpu_torch.ops import kmer as kops
     from mccortex_tpu_torch.ops import sorted as sops
     from mccortex_tpu_torch.ops.kernels import lookup
 
@@ -318,10 +562,11 @@ def phase_lookup(torch, results):
             if not torch.equal(keys[idx[hit].long()], q[hit]):
                 fail(f"lookup W={W} Q={Q}: a found row holds another key")
             for other in (hashidx.lookup_planar(tplan, q, bplan, W),
-                          sops.lookup_join(keys, q)):
+                          sops.lookup_join(keys, q),
+                          sops.lookup_join(keys, q, variant="mp")):
                 if not (torch.equal(other[0], idx) and
                         torch.equal(other[1], found)):
-                    fail(f"lookup W={W} Q={Q}: planar or join disagrees")
+                    fail(f"lookup W={W} Q={Q}: planar or a join disagrees")
             reps = 20 if Q < N_STORE else 10
             ms = time_ms(torch, lambda: lookup.lookup_fused(t128, q, b128, W),
                          reps)
@@ -330,6 +575,8 @@ def phase_lookup(torch, results):
             planar = time_ms(
                 torch, lambda: hashidx.lookup_planar(tplan, q, bplan, W), 5)
             join = time_ms(torch, lambda: sops.lookup_join(keys, q), 3)
+            join_mp = time_ms(
+                torch, lambda: sops.lookup_join(keys, q, variant="mp"), 3)
             # sentinel queries skip the probe: rows read = non-sentinel
             rows = int((q != -1).any(dim=1).sum())
             rate = rows * 512 / (ms * 1e-3)
@@ -338,10 +585,24 @@ def phase_lookup(torch, results):
                   f"bytes {rate / 1e9:.1f} GB/s = "
                   f"{100 * rate / HBM_BYTES_S:.1f} % of 3.35 TB/s), plain "
                   f"{plain:.4f} ms, lookup_planar {planar:.4f} ms, "
-                  f"lookup_join {join:.4f} ms")
+                  f"lookup_join {join:.4f} ms, lookup_join mp "
+                  f"{join_mp:.4f} ms")
             if W == 1 and Q == N_STORE:
-                results["lookup"] = dict(max_abs_err=err, ms=ms,
-                                         plain_ms=plain)
+                ks, qs = keys[:, 0] ^ SIGN, (q[:, 0] ^ SIGN).contiguous()
+                lib = time_ms(torch, lambda: torch.searchsorted(ks, qs), 5)
+                print(f"lookup W={W} Q={Q}: torch.searchsorted of the "
+                      f"queries in the sorted keys {lib:.4f} ms")
+                # every bucket row that a non-sentinel query names, once;
+                # the queries, idx and found; per query the hash and 128
+                # lane compares
+                live = q[(q != -1).any(dim=1)]
+                named = int(torch.unique(kops.srl(
+                    kops.kmer_hash(live), 64 - b128)).numel())
+                results["lookup"] = row(
+                    err, ms, plain, named * 512 + nbytes_of(q, idx, found),
+                    Q * (24 + 128), lib)
+                del live
+                del ks, qs
         del keys, t128, tplan, q, idx, found, want
         torch.cuda.empty_cache()
 
@@ -359,41 +620,87 @@ def run_cli(argv):
     return err
 
 
-def phase_main_path(torch, tmp, card):
-    from mccortex_tpu_torch.io import ctx as ctxio
+def build_under(engine: str, argv, required=None):
+    """One `mctx-torch build` through the CLI under a sort engine, with
+    the launch counts set to 0 just before and read just after.  Returns
+    (stderr, wall seconds, launches)."""
+    from mccortex_tpu_torch.graph import build as gbuild
     from mccortex_tpu_torch.ops.kernels import _build
 
+    saved = gbuild.SORT_IMPL
+    gbuild.SORT_IMPL = engine
+    try:
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        log = run_cli(argv)
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    finally:
+        gbuild.SORT_IMPL = saved
+    print(f"launches of mctx-torch build under MCTX_SORT={engine}: "
+          f"{json.dumps(launches)}")
+    for name in ENGINE_KERNELS[engine] if required is None else required:
+        if launches.get(name, 0) <= 0:
+            fail(f"the build under {engine} never launched the {name} kernel")
+    for name in set(ENGINE_KERNELS["mp"] + ENGINE_KERNELS["bitonic"]) \
+            - set(ENGINE_KERNELS[engine]):
+        if launches.get(name, 0):
+            fail(f"the build under {engine} launched the {name} kernel")
+    return log, wall, launches
+
+
+def build_seconds(log: str) -> float:
+    m = re.search(r"built (\d+) kmers from (\d+) batches in ([\d.]+)s", log)
+    return float(m.group(3)) if m else float("nan")
+
+
+def count_kmers_np(reads: np.ndarray, k: int):
+    want = [canonical_kmers_np(reads[s:s + 100_000], k)
+            for s in range(0, len(reads), 100_000)]
+    return np.unique(np.concatenate(want), return_counts=True)
+
+
+def phase_main_path(torch, tmp, card):
+    from mccortex_tpu_torch.io import ctx as ctxio
+
     t0 = time.perf_counter()
-    genome, reads, starts = genome_and_reads(4_600_000, 20.0, seed=0)
+    genome, reads, starts = genome_and_reads(GENOME_BP, 20.0, seed=0)
     fq = os.path.join(tmp, "reads.fq")
     write_fastq(fq, reads)
     print(f"E. coli-sized input: {len(genome)} bp genome, {len(reads)} reads "
           f"x {reads.shape[1]} bp (made in {time.perf_counter() - t0:.1f}s)")
-    out = os.path.join(tmp, "ecoli.ctx")
-    argv = ["build", "-k", str(K_MAIN), "--sample", "ecoli", "--seq", fq,
-            out, "--device", "cuda"]
-
-    _build.LAUNCHES.clear()
-    t0 = time.perf_counter()
-    log = run_cli(argv)
-    wall = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
-    print(f"launches on the main path: {json.dumps(launches)}")
-    for name in BUILD_KERNELS:
-        if launches.get(name, 0) <= 0:
-            fail(f"the main path never launched the {name} kernel")
+    obs = valid_windows_np(reads, K_MAIN)
+    # lax runs first and last: the spread of two runs of one engine on a
+    # shared host stands beside the differences between engines
+    out, ref, launches = None, None, {}
+    for turn, engine in enumerate(("lax", "mp", "bitonic", "lax")):
+        path = os.path.join(tmp, f"ecoli_{turn}.ctx")
+        log, wall, launches[engine] = build_under(
+            engine, ["build", "-k", str(K_MAIN), "--sample", "ecoli", "--seq",
+                     fq, path, "--device", "cuda"])
+        build_s = build_seconds(log)
+        print(f"main path on {card} under MCTX_SORT={engine}: mctx-torch "
+              f"build wall {wall:.3f}s ({obs / wall / 1e6:.2f}M kmer-obs/s), "
+              f"graph build {build_s:.3f}s ({obs / build_s / 1e6:.2f}M "
+              f"kmer-obs/s), {obs} kmer-obs")
+        if out is None:
+            out, ref = path, open(path, "rb").read()
+            continue
+        if open(path, "rb").read() != ref:
+            fail(f"the .ctx built under {engine} differs from the first lax "
+                 f"one")
+        os.remove(path)
+    print(f"main path: the .ctx of {len(ref)} bytes is byte-identical under "
+          f"lax, mp and bitonic")
+    del ref
 
     h, keys, covg, _edges = ctxio.read_ctx(out)
     kv = keys[:, 0]
     if len(kv) == 0 or not (kv[1:] > kv[:-1]).all():
         fail("the .ctx keys are not strictly increasing")
-    obs = valid_windows_np(reads, K_MAIN)
     if int(covg.sum(dtype=np.uint64)) != obs:
         fail(f"sum of covg {int(covg.sum())} != {obs} kmer windows")
-    want = []
-    for s in range(0, len(reads), 100_000):
-        want.append(canonical_kmers_np(reads[s:s + 100_000], K_MAIN))
-    ukeys, counts = np.unique(np.concatenate(want), return_counts=True)
+    ukeys, counts = count_kmers_np(reads, K_MAIN)
     if not (np.array_equal(ukeys, kv) and
             np.array_equal(counts, covg[:, 0].astype(np.int64))):
         fail("the .ctx kmers/coverage differ from the numpy count of the "
@@ -411,14 +718,110 @@ def phase_main_path(torch, tmp, card):
     gk = canonical_kmers_np(genome[None, :], K_MAIN)[covered]
     if not np.isin(gk, kv).all():
         fail("a genome kmer covered by an error-free read window is missing")
-    m = re.search(r"built (\d+) kmers from (\d+) batches in ([\d.]+)s", log)
-    build_s = float(m.group(3)) if m else float("nan")
     print(f"main path: {len(kv)} kmers (numpy reference equal), "
           f"{int(covered.sum())} covered genome kmers all present")
-    print(f"main path on {card}: mctx-torch build wall {wall:.3f}s "
-          f"({obs / wall / 1e6:.2f}M kmer-obs/s), graph build {build_s:.3f}s "
-          f"({obs / build_s / 1e6:.2f}M kmer-obs/s), {obs} kmer-obs")
-    return launches, genome, out
+    return launches, genome, reads, out
+
+
+def start_tokens_np(reads: np.ndarray, k: int) -> np.ndarray:
+    """(canonical start kmer, orientation) of every N-free read as one
+    Python-hashable integer: the token of the PCR duplicate rule."""
+    head = reads[:, :k].astype(np.uint64)
+    fw = np.zeros(len(reads), np.uint64)
+    rc = np.zeros(len(reads), np.uint64)
+    for t in range(k):
+        fw = (fw << np.uint64(2)) | head[:, t]
+        rc = (rc >> np.uint64(2)) | ((np.uint64(3) - head[:, t])
+                                     << np.uint64(2 * k - 2))
+    return np.stack([np.minimum(fw, rc), (rc < fw).astype(np.uint64)], axis=1)
+
+
+def phase_paired(torch, tmp, card, genome, reads):
+    """The E. coli reads as mate pairs with planted duplicate pairs:
+    `build -p` through --seq2 and through --seqi, and --intersect."""
+    from mccortex_tpu_torch.io import ctx as ctxio
+
+    rng = np.random.default_rng(5)
+    npairs = len(reads) // 2
+    r1, r2 = reads[0:2 * npairs:2].copy(), reads[1:2 * npairs:2].copy()
+    planted = rng.choice(np.arange(1000, npairs), npairs // 20, replace=False)
+    src = rng.integers(0, planted)          # an earlier pair, both mates
+    order = np.argsort(planted)
+    for i, j in zip(planted[order], src[order]):
+        r1[i], r2[i] = r1[j], r2[j]
+    # the rule, one pair after another: a pair goes when both mates' start
+    # tokens were seen before as read starts; every read's tokens count
+    t1 = [tuple(t) for t in start_tokens_np(r1, K_MAIN).tolist()]
+    t2 = [tuple(t) for t in start_tokens_np(r2, K_MAIN).tolist()]
+    seen, keep = set(), np.ones(npairs, bool)
+    for i in range(npairs):
+        keep[i] = not (t1[i] in seen and t2[i] in seen)
+        seen.add(t1[i])
+        seen.add(t2[i])
+    ndrop = int((~keep).sum())
+    if keep[planted].any() or ndrop < len(planted):
+        fail("the reference of the PCR rule kept a planted duplicate pair")
+
+    fq1, fq2 = os.path.join(tmp, "m1.fq"), os.path.join(tmp, "m2.fq")
+    fqi = os.path.join(tmp, "mi.fq")
+    write_fastq(fq1, r1)
+    write_fastq(fq2, r2)
+    inter = np.empty((2 * npairs, reads.shape[1]), np.uint8)
+    inter[0::2], inter[1::2] = r1, r2
+    write_fastq(fqi, inter)
+    gfa = os.path.join(tmp, "genome.fa")
+    with open(gfa, "wb") as fh:
+        fh.write(b">genome\n" + np.frombuffer(b"ACGT", np.uint8)[genome]
+                 .tobytes() + b"\n")
+
+    base = ["build", "-k", str(K_MAIN), "-p", "--sample", "pairs"]
+    outs = {}
+    for name, task in (("seq2", ["--seq2", f"{fq1}:{fq2}"]),
+                       ("seqi", ["--seqi", fqi])):
+        outs[name] = os.path.join(tmp, f"pairs_{name}.ctx")
+        log, wall, _ = build_under(
+            "lax", base + task + [outs[name], "--device", "cuda"])
+        m = re.search(r"removed (\d+) PCR duplicate reads", log)
+        if not m or int(m.group(1)) != 2 * ndrop:
+            fail(f"build -p {name}: removed {m and m.group(1)} reads, the "
+                 f"rule removes {2 * ndrop}")
+        print(f"paired build -p through --{name} on {card}: wall {wall:.3f}s, "
+              f"graph build {build_seconds(log):.3f}s, removed {2 * ndrop} "
+              f"reads = {ndrop} pairs ({len(planted)} planted, the rest start "
+              f"where earlier reads start)")
+    if open(outs["seq2"], "rb").read() != open(outs["seqi"], "rb").read():
+        fail("the --seq2 and --seqi .ctx files differ")
+    _h, keys, covg, _e = ctxio.read_ctx(outs["seq2"])
+    ukeys, counts = count_kmers_np(np.concatenate([r1[keep], r2[keep]]),
+                                   K_MAIN)
+    if not (np.array_equal(ukeys, keys[:, 0]) and
+            np.array_equal(counts, covg[:, 0].astype(np.int64))):
+        fail("build -p: the .ctx differs from the numpy count of the kept "
+             "pairs' kmers")
+    print(f"paired build -p: --seq2 == --seqi byte for byte, {len(ukeys)} "
+          f"kmers equal to the numpy count of the kept pairs")
+
+    gctx = os.path.join(tmp, "genome.ctx")
+    build_under("lax", ["build", "-k", str(K_MAIN), "--sample", "genome",
+                        "--seq", gfa, gctx, "--device", "cuda"])
+    ictx = os.path.join(tmp, "pairs_in_genome.ctx")
+    log, wall, _ = build_under(
+        "lax", base + ["--seq2", fq1, fq2, "--intersect", gctx, ictx,
+                       "--device", "cuda"])
+    hi_, ikeys, icovg, _e = ctxio.read_ctx(ictx)
+    gk = np.unique(canonical_kmers_np(genome[None, :], K_MAIN))
+    _h, gkeys, _c, _e = ctxio.read_ctx(gctx)
+    if not np.array_equal(gkeys[:, 0], gk):
+        fail("the genome's graph differs from the genome's kmers")
+    shared = np.isin(ukeys, gk)
+    if not (np.array_equal(ikeys[:, 0], ukeys[shared]) and
+            np.array_equal(icovg[:, 0].astype(np.int64), counts[shared])):
+        fail("--intersect did not keep exactly the kmers shared with the "
+             "genome's graph, with their coverage")
+    if not hi_.ginfo[0].cleaning.is_graph_intersection:
+        fail("--intersect did not mark the header")
+    print(f"build -p --intersect: wall {wall:.3f}s; kept {len(ikeys)} of "
+          f"{len(ukeys)} kmers, exactly those among the genome's {len(gk)}")
 
 
 def revcomp_np(x: np.ndarray, k: int) -> np.ndarray:
@@ -557,8 +960,38 @@ def phase_byte_identity(torch, tmp):
             fail(f"k={k}: the CUDA and CPU .ctx files differ")
         print(f"byte identity k={k}: 2-colour .ctx of {len(a)} bytes, "
               f"CUDA == CPU")
-    # clean and unitigs of the k=31 graph, on the card and on the CPU
+        if k != K_MAIN:
+            continue
+        for engine in ("mp", "bitonic"):
+            for dev in ("cuda", "cpu"):
+                path = os.path.join(tmp, f"two_{engine}_{dev}.ctx")
+                build_under(engine, [
+                    "build", "-k", str(k), "-Q", "5", "-H", "8", "--sample",
+                    "a", "--seq", fq0, "--sample", "b", "--seq", fq1, path,
+                    "--device", dev],
+                    required=ENGINE_KERNELS[engine] if dev == "cuda" else ())
+                if open(path, "rb").read() != a:
+                    fail(f"k={k} under {engine} on {dev}: the .ctx differs "
+                         f"from the lax one")
+            print(f"byte identity k={k} under MCTX_SORT={engine}: CUDA == CPU "
+                  f"== the lax .ctx")
+    # an existing graph's colours slotted in before a paired colour with -p
     raw = os.path.join(tmp, f"two_k{K_MAIN}_cuda.ctx")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        path = os.path.join(tmp, f"graph_pairs_{dev}.ctx")
+        log = run_cli(["build", "-k", str(K_MAIN), "-p", "--graph", raw,
+                       "--sample", "c", "--seq2", fq0, fq1, path, "--device",
+                       dev])
+        got[dev] = (open(path, "rb").read(),
+                    re.search(r"removed (\d+) PCR duplicate reads", log))
+    if got["cuda"][0] != got["cpu"][0] or not got["cuda"][1] or \
+            got["cuda"][1].group(1) != got["cpu"][1].group(1):
+        fail("--graph + --seq2 -p: the CUDA and CPU builds differ")
+    print(f"byte identity --graph + --seq2 -p (k={K_MAIN}): 3-colour .ctx of "
+          f"{len(got['cpu'][0])} bytes, CUDA == CPU, "
+          f"{got['cuda'][1].group(1)} reads removed on both")
+    # clean and unitigs of the k=31 graph, on the card and on the CPU
     for name, argv, out in (
             ("clean -T -U", ["clean", "-T", "-U", "-o"], "c.ctx"),
             ("unitigs", ["unitigs", "-o"], "u.fa"),
@@ -609,26 +1042,55 @@ def main():
 
     # 3. kernels against their plain versions
     results = {}
-    phase_kernels(torch, results)
+    shapes = phase_kernels(torch, results)
+    sorts = phase_sorts(torch, results, shapes)
+    del shapes
+    torch.cuda.empty_cache()
     phase_lookup(torch, results)
 
     with tempfile.TemporaryDirectory() as tmp:
-        # 4. the build path at real size
-        launches, genome, raw = phase_main_path(torch, tmp, card)
+        # 4. the build path at real size, under every sort engine
+        by_engine, genome, reads, raw = phase_main_path(torch, tmp, card)
+        phase_paired(torch, tmp, card, genome, reads)
+        del reads
         # 4b. clean and unitigs on its graph
-        launches["lookup"] = phase_graph_path(torch, tmp, card, raw, genome)
+        lookups = phase_graph_path(torch, tmp, card, raw, genome)
         # 5. CUDA and CPU outputs byte for byte
         phase_byte_identity(torch, tmp)
 
-    replaces = {"frontend": "mccortex_tpu/ops/pallas/frontend.py:203",
-                "segreduce": "mccortex_tpu/ops/pallas/segreduce.py:321",
-                "mergepath": "mccortex_tpu/ops/pallas/mergepath.py:262",
-                "lookup": "mccortex_tpu/ops/pallas/lookup.py:163"}
-    kernels = [dict(name=name, route="cuda",
-                    source=f"mccortex_tpu_torch/csrc/{name}.cu",
-                    replaces=replaces[name], launches=launches[name],
-                    **results[name])
-               for name in _build.KERNELS]
+    # launches on the main path: the build's kernels from the E. coli build
+    # under the default engine, the sort kernels from the build under the
+    # engine that runs them, the lookup kernel from clean + unitigs
+    launches = {"frontend": by_engine["lax"]["frontend"],
+                "segreduce": by_engine["lax"]["segreduce"],
+                "mergepath": by_engine["lax"]["mergepath"],
+                "lookup": lookups,
+                "mergelevel": by_engine["mp"]["mergelevel"],
+                "bitonic_blocksort": by_engine["mp"]["bitonic_blocksort"],
+                "bitonic_tail": by_engine["bitonic"]["bitonic_tail"],
+                "bitonic_butterfly": by_engine["bitonic"]["bitonic_butterfly"]}
+    sources = {"mergelevel": "mergepath", "bitonic_blocksort": "bitonic",
+               "bitonic_tail": "bitonic", "bitonic_butterfly": "bitonic"}
+    replaces = {
+        "frontend": "mccortex_tpu/ops/pallas/frontend.py:203",
+        "segreduce": "mccortex_tpu/ops/pallas/segreduce.py:321",
+        "mergepath": "mccortex_tpu/ops/pallas/mergepath.py:262",
+        "lookup": "mccortex_tpu/ops/pallas/lookup.py:163",
+        "mergelevel": "mccortex_tpu/ops/pallas/mergepath.py:190",
+        "bitonic_blocksort": "mccortex_tpu/ops/pallas/bitonic.py:106",
+        "bitonic_tail": "mccortex_tpu/ops/pallas/bitonic.py:141",
+        "bitonic_butterfly": "mccortex_tpu/ops/pallas/bitonic.py:186"}
+    kernels = []
+    for name in replaces:
+        if launches[name] <= 0:
+            fail(f"the main path never launched the {name} kernel")
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"mccortex_tpu_torch/csrc/{sources.get(name, name)}.cu",
+            replaces=replaces[name], launches=launches[name],
+            **results[name]))
+    print(card)
+    print(json.dumps({"sorts": sorts}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

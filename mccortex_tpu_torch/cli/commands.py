@@ -1,6 +1,7 @@
 """mctx-torch subcommands (counterpart of mccortex_tpu/cli/commands.py).
 
-Ported so far: build, clean, unitigs.
+Ported so far: build (all of `mctx build` on one device except --ref and
+SAM/BAM/CRAM input), clean, unitigs.
 """
 
 from __future__ import annotations
@@ -13,11 +14,8 @@ import numpy as np
 import torch
 
 from ..utils import timing
-from .common import add_common, apply_common, check_kmer
-
-# build inputs and options of `mctx build` that this port does not run yet
-_NOT_PORTED_TASKS = ("-2", "--seq2", "-i", "--seqi", "-g", "--graph")
-
+from .common import (add_common, apply_common, check_kmer, devices_arg,
+                     nkmers_hint)
 
 def _not_ported(p, flag: str):
     p.error(f"{flag} is not yet ported to mctx-torch (use mctx)")
@@ -29,28 +27,43 @@ def cmd_build(argv):
         description="reads -> coloured .ctx graph",
         epilog="colour tasks (order on the command line defines the "
                "colours): -s/--sample <name> starts a colour; "
-               "-1/--seq <in> adds a FASTA/FASTQ file (plain or gz) to it")
+               "-1/--seq <in>, -2/--seq2 <in1>:<in2> (or two args), "
+               "-i/--seqi <interleaved> add that colour's reads (FASTA or "
+               "FASTQ, plain or gz); -g/--graph <in.ctx> slots an existing "
+               "graph's colours in at its position.  The sort engine is "
+               "the environment variable MCTX_SORT: lax (default), lax64, "
+               "mp, bitonic")
     p.add_argument("-k", "--kmer", type=int, required=True)
     p.add_argument("-Q", "--fq-cutoff", type=int, default=0)
     p.add_argument("-O", "--fq-offset", type=int, default=0,
                    help="FASTQ quality ASCII offset: 33 or 64 "
                         "[default: 0 = auto-detect per file]")
     p.add_argument("-H", "--cut-hp", type=int, default=0)
+    p.add_argument("-M", "--matepair", default="FR",
+                   choices=["FF", "FR", "RF", "RR"],
+                   help="mate pair orientation for --seq2/--seqi "
+                        "PCR-duplicate detection")
     p.add_argument("-p", "--remove-pcr", action="store_true",
-                   help="not yet ported")
-    p.add_argument("-I", "--intersect", default=None, help="not yet ported")
-    p.add_argument("-m", "--memory", default=None, help="not yet ported")
-    p.add_argument("--devices", default=None, help="not yet ported")
+                   help="drop reads whose start kmers were already seen "
+                        "as read starts (PCR duplicate removal)")
+    p.add_argument("-P", "--keep-pcr", action="store_true",
+                   help="no PCR duplicate removal (default)")
+    p.add_argument("--sort", action="store_true",
+                   help="sort output kmers (accepted for parity: the "
+                        "store is always sorted)")
+    p.add_argument("-I", "--intersect", default=None,
+                   help="only keep kmers also present in this graph")
+    p.add_argument("--ref", default=None, help="not yet ported")
+    p.add_argument("-t", "--threads", type=int, default=None,
+                   help="accepted for parity")
+    p.add_argument("--devices", default=None,
+                   help="devices to run on; more than 1 is not yet ported")
     p.add_argument("-o", "--out", dest="out_explicit", default=None)
     p.add_argument("out", nargs="?", default=None)
-    add_common(p)
+    add_common(p, memory=True, nkmers=True)
     args, tasks = _parse_build_tasks(p, argv)
-    for flag, val in (("-p/--remove-pcr", args.remove_pcr),
-                      ("-I/--intersect", args.intersect),
-                      ("-m/--memory", args.memory),
-                      ("--devices", args.devices)):
-        if val:
-            _not_ported(p, flag)
+    if args.ref:
+        _not_ported(p, "--ref")
     out = args.out_explicit or args.out
     if not out:
         p.error("output .ctx path required")
@@ -58,13 +71,20 @@ def cmd_build(argv):
         p.error("at least one --sample ... --seq ... required")
     if args.fq_offset not in (0, 33, 64):
         p.error("--fq-offset must be 33 or 64 (0 = auto)")
+    if args.keep_pcr and args.remove_pcr:
+        p.error("--keep-pcr conflicts with --remove-pcr")
     k = check_kmer(args.kmer, p)
+    if devices_arg(args) > 1:
+        _not_ported(p, "--devices above 1")
     status, device = apply_common(args, out)
 
+    from ..constants import nwords
     from ..graph import build as gbuild
     from ..graph import store as gstore
     from ..io import ctx as ctxio
     from ..io import seqio
+    from ..ops import sorted as sops
+    from ..utils import membudget as mb
 
     def _mask(codes, quals):
         if quals is not None and args.fq_cutoff:
@@ -78,34 +98,125 @@ def cmd_build(argv):
 
     ginfo = []
     batches = []
+    gmerge = []   # (colour offset, keys, covg, edges) from --graph files
+    pcr = gbuild.PcrDupFilter(k, device) if args.remove_pcr else None
+    ndup = 0
+    colour = 0
     t0 = time.perf_counter()
-    for colour, (sample, files) in enumerate(tasks):
+    for task in tasks:
+        if task[0] == "graph":
+            h2, k2, c2, e2 = ctxio.read_ctx(task[1])
+            if h2.kmer_size != k:
+                p.error(f"--graph {task[1]}: kmer size "
+                        f"{h2.kmer_size} != {k}")
+            gmerge.append((colour, k2, c2, e2))
+            ginfo.extend(h2.ginfo)
+            status(f"colour {colour}..{colour + h2.ncols - 1}: graph "
+                   f"{task[1]} ({len(k2)} kmers)")
+            colour += h2.ncols
+            continue
+        _, sample, files = task
         total_seq = 0
         nreads = 0
-        for path in files:
-            for codes, quals, _ in seqio.read_batches_chunked(
-                    [path], colour=colour, overlap=k,
-                    fq_offset=args.fq_offset):
-                codes = _mask(codes, quals)
-                total_seq += int((codes < 4).sum())
-                nreads += codes.shape[0]
-                batches.append((codes, colour))
+
+        def _emit(codes, quals):
+            nonlocal total_seq, nreads
+            codes = _mask(np.ascontiguousarray(codes), quals)
+            total_seq += int((codes < 4).sum())
+            nreads += codes.shape[0]
+            batches.append((codes, colour))
+
+        def _keep(c1, c2, *quals):
+            """Apply the PCR filter to one batch (a pair when c2 is
+            given); returns the kept rows of every array, or None when
+            none is left."""
+            nonlocal ndup
+            if pcr is None:
+                return (c1, c2) + quals
+            keepm = pcr.filter_batch(c1, c2)
+            ndup += int((~keepm).sum()) * (1 if c2 is None else 2)
+            if not keepm.any():
+                return None
+            return tuple(None if x is None else x[keepm]
+                         for x in (c1, c2) + quals)
+
+        for entry in files:
+            kind = entry[0]
+            if kind == "se":
+                for codes, quals, _ in seqio.read_batches_chunked(
+                        [entry[1]], colour=colour, overlap=k,
+                        fq_offset=args.fq_offset):
+                    kept = _keep(codes, None, quals)
+                    if kept is not None:
+                        _emit(kept[0], kept[2])
+            elif kind == "pe":
+                # a pair is dropped only when both mates' start kmers
+                # were seen
+                for c1, c2, _ in seqio.read_batches_pe(
+                        entry[1], entry[2], colour=colour,
+                        matedir=args.matepair, fq_offset=args.fq_offset):
+                    kept = _keep(c1, c2)
+                    if kept is not None:
+                        _emit(kept[0], None)
+                        _emit(kept[1], None)
+            else:   # interleaved: even rows = r1, odd rows = r2
+                for c1, c2, q1, q2, _ in seqio.read_batches_interleaved(
+                        entry[1], colour=colour, matedir=args.matepair,
+                        fq_offset=args.fq_offset):
+                    kept = _keep(c1, c2, q1, q2)
+                    if kept is not None:
+                        _emit(kept[0], kept[2])
+                        _emit(kept[1], kept[3])
         ginfo.append(ctxio.GraphInfo(
             sample_name=sample, total_sequence=total_seq,
             mean_read_length=total_seq // max(nreads, 1)))
         status(f"colour {colour} '{sample}': {nreads} reads, "
                f"{total_seq} bases")
-    ncols = len(tasks)
+        colour += 1
+    ncols = colour
     status(f"read {len(batches)} batches in {time.perf_counter() - t0:.3f}s")
+    if args.remove_pcr:
+        status(f"removed {ndup} PCR duplicate reads")
+    budget = None
+    if args.memory:
+        budget = mb.parse_mem(args.memory)
+        cap = mb.kmers_in_budget(budget, nwords(k), ncols)
+        dmem = mb.device_mem_bytes(device)
+        on_dev = f" (device memory {mb.mem_str(dmem)})" if dmem else ""
+        status(f"memory budget {mb.mem_str(budget)}{on_dev}: up to {cap} "
+               f"kmers")
 
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
     t0 = time.perf_counter()
-    g = gbuild.build(batches, k, ncols=ncols, device=device)
+    g = gbuild.build(batches, k, ncols=ncols, device=device,
+                     capacity=nkmers_hint(args))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     status(f"built {g.n} kmers from {len(batches)} batches in "
-           f"{time.perf_counter() - t0:.3f}s on {where}")
+           f"{time.perf_counter() - t0:.3f}s on {where} "
+           f"(sort engine {gbuild.SORT_IMPL})")
+    if gmerge:
+        g = _store_from_host_records(
+            k, [(0,) + gstore.to_host(g)] + gmerge, ncols, device)
+    if args.intersect:
+        hi_, ikeys, _ic, _ie = ctxio.read_ctx(args.intersect)
+        if hi_.kmer_size != k:
+            p.error(f"--intersect kmer size {hi_.kmer_size} != {k}")
+        if len(ikeys):
+            _idx, found = sops.lookup(
+                torch.from_numpy(ikeys.view(np.int64)).to(device), g.keys)
+            keep = found & ~sops.is_sentinel(g.keys)
+        else:
+            keep = torch.zeros(g.capacity, dtype=torch.bool, device=device)
+        g = gstore.from_records(k, g.keys[keep], g.covg[keep], g.edges[keep])
+        for gi in ginfo:
+            gi.cleaning.is_graph_intersection = True
+            gi.cleaning.intersection_name = args.intersect
+        status(f"intersected with {args.intersect}: {g.n} kmers")
+    if budget is not None:
+        status(mb.check_plan(budget, mb.graph_mem_bytes(g.n, nwords(k),
+                                                        ncols)))
     t0 = time.perf_counter()
     keys, covg, edges = gstore.to_host(g)
     hdr = ctxio.CtxHeader(kmer_size=k, ginfo=ginfo)
@@ -113,6 +224,26 @@ def cmd_build(argv):
     status(f"wrote {len(keys)} kmers x {ncols} colours to {out} in "
            f"{time.perf_counter() - t0:.3f}s")
     return 0
+
+
+def _store_from_host_records(k, parts, ncols, device):
+    """Store of ncols colours on `device` from host record sets: each part
+    is (colour offset, uint64 keys, uint32 covg, uint8 edges) and fills
+    the colours from its offset on; equal keys are aggregated."""
+    from ..graph import store as gstore
+    allk, allc, alle = [], [], []
+    for off, keys, covg, edges in parts:
+        cw = np.zeros((len(keys), ncols), np.uint32)
+        ew = np.zeros((len(keys), ncols), np.uint8)
+        cw[:, off:off + covg.shape[1]] = covg
+        ew[:, off:off + edges.shape[1]] = edges
+        allk.append(keys)
+        allc.append(cw)
+        alle.append(ew)
+    return gstore.from_records(
+        k, torch.from_numpy(np.concatenate(allk).view(np.int64)).to(device),
+        torch.from_numpy(np.concatenate(allc).view(np.int32)).to(device),
+        torch.from_numpy(np.concatenate(alle)).to(device))
 
 
 # ---------------------------------------------------------------------------
@@ -144,22 +275,13 @@ def _load_graphs(paths, device):
             if h.kmer_size != k:
                 raise ValueError(f"{p}: kmer size {h.kmer_size} != {k}")
         ncols = sum(h.ncols for h, *_ in loaded)
-        allk, allc, alle, ginfo = [], [], [], []
+        parts, ginfo = [], []
         off = 0
         for h, keys, covg, edges in loaded:
-            cw = np.zeros((len(keys), ncols), np.uint32)
-            ew = np.zeros((len(keys), ncols), np.uint8)
-            cw[:, off:off + h.ncols] = covg
-            ew[:, off:off + h.ncols] = edges
+            parts.append((off, keys, covg, edges))
             ginfo.extend(h.ginfo)
             off += h.ncols
-            allk.append(keys)
-            allc.append(cw)
-            alle.append(ew)
-        g = gstore.from_records(
-            k, torch.from_numpy(np.concatenate(allk).view(np.int64)).to(device),
-            torch.from_numpy(np.concatenate(allc).view(np.int32)).to(device),
-            torch.from_numpy(np.concatenate(alle)).to(device))
+        g = _store_from_host_records(k, parts, ncols, device)
         return ctxio.CtxHeader(kmer_size=k, ginfo=ginfo), g
 
 
@@ -305,27 +427,62 @@ def cmd_unitigs(argv):
 
 
 def _parse_build_tasks(p, argv):
-    """Pair each --sample with the --seq files that follow it, in
-    command-line order; every other argument goes to the parser."""
-    tasks = []       # (sample name, [files])
+    """Pair each --sample with the sequence inputs that follow it, in
+    command-line order; -g/--graph slots an existing .ctx file's colours
+    in at its position.  Every other argument goes to the parser.
+    Returns (args, tasks), a task being ("sample", name, inputs) or
+    ("graph", path) and an input ("se", path), ("pe", path1, path2) or
+    ("interleaved", path)."""
+    tasks = []
+    cur_name, cur_files = None, []
     rest = []
     i = 0
+
+    def flush():
+        nonlocal cur_name, cur_files
+        if cur_name is not None:
+            tasks.append(("sample", cur_name, cur_files))
+        cur_name, cur_files = None, []
+
+    def operands(n):
+        vals = argv[i + 1:i + 1 + n]
+        if len(vals) < n:
+            p.error(f"{argv[i]} needs {n} argument{'s' if n > 1 else ''}")
+        return vals
+
+    def add_input(entry):
+        if cur_name is None:
+            p.error(f"{argv[i]} {entry[1]}: give --sample first")
+        cur_files.append(entry)
+
     while i < len(argv):
         a = argv[i]
-        if a in ("-s", "--sample", "-1", "--seq", "--seq1") and \
-                i + 1 >= len(argv):
-            p.error(f"{a} needs an argument")
         if a in ("-s", "--sample"):
-            tasks.append((argv[i + 1], []))
+            name, = operands(1)
+            flush()
+            cur_name, cur_files = name, []
             i += 2
         elif a in ("-1", "--seq", "--seq1"):
-            if not tasks:
-                p.error(f"{a} {argv[i + 1]}: give --sample first")
-            tasks[-1][1].append(argv[i + 1])
+            add_input(("se",) + tuple(operands(1)))
             i += 2
-        elif a in _NOT_PORTED_TASKS:
-            _not_ported(p, a)
+        elif a in ("-2", "--seq2"):
+            first, = operands(1)
+            if ":" in first:       # "in1:in2", or two separate arguments
+                add_input(("pe",) + tuple(first.split(":", 1)))
+                i += 2
+            else:
+                add_input(("pe",) + tuple(operands(2)))
+                i += 3
+        elif a in ("-i", "--seqi"):
+            add_input(("interleaved",) + tuple(operands(1)))
+            i += 2
+        elif a in ("-g", "--graph"):
+            path, = operands(1)
+            flush()
+            tasks.append(("graph", path))
+            i += 2
         else:
             rest.append(a)
             i += 1
+    flush()
     return p.parse_args(rest), tasks

@@ -85,26 +85,24 @@ def from_records(k: int, keys: torch.Tensor, covg: torch.Tensor,
                  edges: torch.Tensor, capacity: int | None = None) -> DBGraph:
     """Store from unaggregated (key, covg, edges) records: keys (N, W)
     int64, covg (N, C) int32, edges (N, C) uint8, on one device.  Records
-    with sentinel keys are ignored; capacity defaults to N.  Built as
-    build._merge folds: a stable sort of the key planes, then the
-    segreduce kernel (covg summed modulo 2**32, edges OR-ed)."""
-    from ..ops import kmer as kops
-    from ..ops.kernels import segreduce
+    with sentinel keys are ignored; capacity defaults to N.  Sorted and
+    aggregated by build.reduce_records_fused under the build's sort
+    engine (covg summed modulo 2**32, edges OR-ed)."""
+    from . import build as gbuild
     check_k(k)
-    N, W = keys.shape
+    N = keys.shape[0]
     C = covg.shape[1]
     capacity = capacity or N
-    kp = kops.to_planes(keys)
-    planes = torch.cat([kp, covg.T.to(torch.int32), edges.T.to(torch.int32)])
-    planes = planes[:, sops.argsort_planes(kp)]
-    okeys, _count, osums, oors, n = segreduce.segreduce_compact_multi(
-        planes[:2 * W], planes[2 * W:2 * W + C], planes[2 * W + C:])
+    if N == 0:
+        return empty(k, capacity, C, keys.device)
+    okeys, ocovg, oedges, n = gbuild.reduce_records_fused(
+        keys, covg.to(torch.int32), edges)
     g = empty(k, capacity, C, keys.device)
     m = min(N, capacity)
-    g.keys[:m] = kops.from_planes(okeys[:, :m])
-    g.covg[:m] = osums[:, :m].T
-    g.edges[:m] = oors[:, :m].T.to(torch.uint8)
-    g.n = min(int(n), capacity)
+    g.keys[:m] = okeys[:m]
+    g.covg[:m] = ocovg[:m]
+    g.edges[:m] = oedges[:m]
+    g.n = min(n, capacity)
     return g
 
 

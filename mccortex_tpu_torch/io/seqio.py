@@ -2,8 +2,10 @@
 
 Copy of the FASTA/FASTQ part of mccortex_tpu/io/seqio.py (which cannot
 be imported without jax); tests hold the two equal.  The FASTQ quality
-offset is an argument here instead of a module global.  SAM/BAM/CRAM
-input and the native C++ reader are not ported yet.
+offset is an argument here instead of a module global.  Mate pairs
+come as two files (read_batches_pe) or one interleaved file
+(read_batches_interleaved), normalised to the FR convention.
+SAM/BAM/CRAM input and the native C++ reader are not ported yet.
 """
 
 from __future__ import annotations
@@ -139,3 +141,81 @@ def read_batches_chunked(paths, batch_size: int = 2048, max_len: int = 1024,
                     buf = []
     if buf:
         yield _to_batch(buf, max_len, colour)
+
+
+def _rc_codes(codes: np.ndarray) -> np.ndarray:
+    """Reverse-complement a padded code batch (4 = invalid stays 4)."""
+    return np.where(codes < 4, 3 - codes, 4).astype(np.uint8)[:, ::-1]
+
+
+def mate_normalize(c1: np.ndarray, c2: np.ndarray, matedir: str = "FR",
+                   q1: np.ndarray | None = None,
+                   q2: np.ndarray | None = None):
+    """Normalise a mate pair to the FR convention every paired consumer
+    assumes (r1 fragment-forward, r2 on the reverse strand).  Only the
+    mates' relative orientation matters: RR equals FF, RF is the
+    mirrored FR.  Quality rows are reversed alongside their codes.
+    Returns (c1, c2), or (c1, c2, q1, q2) when a quality array is given."""
+    m = matedir.upper()
+    if m == "FR":
+        pass
+    elif m in ("FF", "RR"):
+        c2 = _rc_codes(c2)
+        q2 = q2[:, ::-1] if q2 is not None else None
+    elif m == "RF":
+        c1, c2 = _rc_codes(c1), _rc_codes(c2)
+        q1 = q1[:, ::-1] if q1 is not None else None
+        q2 = q2[:, ::-1] if q2 is not None else None
+    else:
+        raise ValueError(f"matepair must be FF/FR/RF/RR, got {matedir!r}")
+    if q1 is None and q2 is None:
+        return c1, c2
+    return c1, c2, q1, q2
+
+
+def read_batches_pe(path1, path2, batch_size: int = 2048,
+                    max_len: int = 8192, colour: int = 0,
+                    matedir: str = "FR", fq_offset: int = 0):
+    """Yield mate-pair batches (codes1, codes2, colour); the files hold
+    the mates in the same order.  A mate of max_len bases or more would
+    come as several chunk rows and misalign the pairing, so it is
+    rejected."""
+    it1 = read_batches_chunked([path1], batch_size, max_len, colour,
+                               fq_offset=fq_offset)
+    it2 = read_batches_chunked([path2], batch_size, max_len, colour,
+                               fq_offset=fq_offset)
+    for (c1, _q1, _), (c2, _q2, _) in zip(it1, it2):
+        if c1.shape[1] >= max_len or c2.shape[1] >= max_len:
+            raise ValueError(
+                f"paired-end mate >= {max_len}bp: chunked rows would "
+                f"misalign mate pairing ({path1} / {path2})")
+        n = min(c1.shape[0], c2.shape[0])
+        c1, c2 = mate_normalize(c1[:n], c2[:n], matedir)
+        yield c1, c2, colour
+
+
+def read_batches_interleaved(path, batch_size: int = 2048,
+                             max_len: int = 8192, colour: int = 0,
+                             matedir: str = "FR", fq_offset: int = 0):
+    """Yield (codes1, codes2, quals1, quals2, colour) from an interleaved
+    mate-pair file (even rows = r1); the same length guard as
+    read_batches_pe."""
+    for codes, quals, _ in read_batches_chunked([path], batch_size, max_len,
+                                                colour, fq_offset=fq_offset):
+        if codes.shape[1] >= max_len:
+            raise ValueError(
+                f"interleaved mate >= {max_len}bp: chunked rows would "
+                f"misalign mate pairing ({path})")
+        if codes.shape[0] % 2:
+            codes = codes[:-1]
+            quals = quals[:-1] if quals is not None else None
+        c1, c2 = codes[0::2], codes[1::2]
+        q1 = quals[0::2] if quals is not None else None
+        q2 = quals[1::2] if quals is not None else None
+        c1, c2, q1, q2 = mate_normalize(
+            c1, c2, matedir,
+            q1 if q1 is not None else np.zeros_like(c1),
+            q2 if q2 is not None else np.zeros_like(c2))
+        if quals is None:
+            q1 = q2 = None
+        yield c1, c2, q1, q2, colour

@@ -12,7 +12,10 @@ Every C entry point takes device pointers, ints and the CUDA stream
 caller's stream, allocates nothing and returns `cudaGetLastError()`;
 `check` raises on a non-zero code.
 
-`LAUNCHES` counts, per kernel, the wrapper calls that launched it.
+`LAUNCHES` counts, per kernel, the wrapper calls that launched it.  A
+source file may hold several kernels, each counted under its own name:
+mergepath.cu holds `mergepath` and `mergelevel`, bitonic.cu holds
+`bitonic_blocksort`, `bitonic_tail` and `bitonic_butterfly`.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-KERNELS = ("frontend", "segreduce", "mergepath", "lookup")
+KERNELS = ("frontend", "segreduce", "mergepath", "lookup", "bitonic")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"

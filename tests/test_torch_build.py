@@ -225,9 +225,7 @@ def test_cli_multicolour_masked_build_matches_mctx(tmp_path, monkeypatch, k):
         assert covg[:, 0].sum() > 0
 
 
-@pytest.mark.parametrize("flag", [
-    ["--seq2", "x.fq", "y.fq"], ["--seqi", "x.fq"], ["--graph", "g.ctx"],
-    ["-p"], ["--intersect", "g.ctx"], ["-m", "1G"], ["--devices", "2"]])
+@pytest.mark.parametrize("flag", [["--ref", "ref.fa"], ["--devices", "2"]])
 def test_cli_rejects_flags_not_ported(tmp_path, flag, capsys):
     fa, _ = _write_inputs(tmp_path)
     with pytest.raises(SystemExit) as e:

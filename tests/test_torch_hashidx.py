@@ -6,6 +6,7 @@ tests/test_pallas_lookup.py runs it.  Integer outputs: exact equality,
 no tolerance."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -205,9 +206,82 @@ def test_pick_impl_gate(monkeypatch):
 
 
 def test_lookup_join_mp_is_not_ported():
+    """Once the refusal of variant="mp"; it is ported now: an unknown
+    variant is what raises, and more key planes than the kernels stage."""
     keys = _t(_keys(1, 10, 1))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tsops.lookup_join(keys, keys, variant="mp")
+    idx, found = tsops.lookup_join(keys, keys, variant="mp")
+    assert found.all() and torch.equal(idx, torch.arange(10, dtype=torch.int32))
+    with pytest.raises(ValueError, match="unknown lookup_join variant"):
+        tsops.lookup_join(keys, keys, variant="quick")
+    wide = _t(_keys(2, 10, 5))
+    with pytest.raises(ValueError, match="key planes"):
+        tsops.lookup_join(wide, wide, variant="mp")
+
+
+def test_lookup_join_mp_matches_lax_and_jax(case):
+    W, keys, q = case["W"], case["keys"], case["q"]
+    _check(tsops.lookup_join(_t(keys), _t(q), variant="mp"),
+           case["want"]["join"])
+    padded = np.concatenate([keys, np.full((77, W), SENT)])
+    got = tsops.lookup_join(_t(padded), _t(q).reshape(3, 667, W),
+                            variant="mp")
+    lax = tsops.lookup_join(_t(padded), _t(q).reshape(3, 667, W))
+    assert got[0].shape == (3, 667)
+    assert torch.equal(got[0], lax[0]) and torch.equal(got[1], lax[1])
+
+
+@pytest.mark.parametrize("W", [1, 2])
+def test_lookup_join_mp_matches_jax_mp(W):
+    # the JAX package's own mp variant (Pallas in interpret mode, at a
+    # small block), on the inputs of its test
+    from mccortex_tpu.ops.pallas import mergepath as jmp
+    saved = jmp._r_blk_for
+    jmp._r_blk_for = lambda np_: 8
+    jax.clear_caches()
+    try:
+        store = _keys(31, 1500, W)
+        rng = np.random.default_rng(32)
+        q = np.concatenate([store[rng.integers(0, len(store), 300)],
+                            _keys(33, 120, W), np.full((7, W), SENT)])
+        rng.shuffle(q)
+        padded = np.concatenate([store, np.full((64, W), SENT)])
+        want = jsops.lookup_join(jnp.asarray(padded), jnp.asarray(q),
+                                 variant="mp", interpret=True)
+    finally:
+        jmp._r_blk_for = saved
+        jax.clear_caches()
+    _check(tsops.lookup_join(_t(padded), _t(q), variant="mp"),
+           (np.asarray(want[0]), np.asarray(want[1])))
+
+
+@pytest.mark.parametrize("W", [1, 2])
+def test_searchsorted_and_lookup_match_jax(W):
+    keys = _keys(60 + W, 2000, W)
+    padded = np.concatenate([keys, np.full((50, W), SENT)])
+    q = _queries(70 + W, keys, 1001).reshape(7, 143, W)
+    jk_, jq = jnp.asarray(padded), jnp.asarray(q)
+    got = tsops.searchsorted_mw(_t(padded), _t(q))
+    assert got.dtype == torch.int32 and got.shape == (7, 143)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jsops.searchsorted_mw(jk_, jq)))
+    _check(tsops.lookup(_t(padded), _t(q)),
+           tuple(np.asarray(x) for x in jsops.lookup(jk_, jq)))
+    flat = q.reshape(-1, W)
+    # JAX's multiword side="right" search steps once past the end for a
+    # query that is not below the last key (here: the sentinel queries
+    # against the sentinel tail); the port gives M there, as both give at
+    # W = 1.  Everywhere else the two are equal.
+    below_last = ~(flat == SENT).all(axis=1)
+    for side in ("left", "right"):
+        got = tsops.searchsorted_chunked(_t(padded), _t(flat), side).numpy()
+        want = np.asarray(jsops.searchsorted_chunked(
+            jk_, jnp.asarray(flat), side))
+        np.testing.assert_array_equal(got[below_last], want[below_last])
+        np.testing.assert_array_equal(
+            got[~below_last],
+            len(keys) if side == "left" else len(padded))
+    with pytest.raises(ValueError):
+        tsops.searchsorted_chunked(_t(padded), _t(flat), "middle")
 
 
 def test_lookup_fused_checks_its_arguments():

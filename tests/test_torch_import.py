@@ -33,7 +33,7 @@ def test_every_module_imports_without_jax(tmp_path):
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 25
+    assert n_modules >= 27      # ... incl. ops.kernels.bitonic, utils.membudget
 
 
 def _sources(exts):
@@ -58,7 +58,8 @@ def test_cuda_sources_use_no_device_library():
     rx = re.compile(r"cub::Device|thrust|#include\s*<torch")
     srcs = list(_sources((".cu", ".cuh")))
     assert {os.path.basename(p) for p in srcs} >= {
-        "frontend.cu", "segreduce.cu", "mergepath.cu", "lookup.cu"}
+        "frontend.cu", "segreduce.cu", "mergepath.cu", "lookup.cu",
+        "bitonic.cu"}
     hits = [p for p in srcs if rx.search(open(p).read())]
     assert not hits, hits
 
@@ -73,3 +74,24 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.function("segreduce", "mctx_segreduce", 6, 7)
     assert _build.build(()) == 0.0
+
+
+@pytest.mark.parametrize("module", ["ops/kernels/bitonic.py",
+                                    "ops/kernels/mergepath.py"])
+def test_kernel_sorts_call_no_library_sort(module):
+    """The mp and bitonic engines' wrappers sort with their kernels: the
+    only torch.sort they may reach is inside a plain version, which
+    ops.sorted.argsort_planes holds."""
+    src = open(os.path.join(PKG, module)).read()
+    assert not re.search(r"torch\.(sort|argsort|searchsorted|msort)\b", src)
+    assert not re.search(r"\.(sort|argsort)\(", src)
+    assert not re.search(r"\btry\b", src)         # no fallback
+
+
+def test_unknown_mctx_sort_raises_at_import():
+    env = dict(os.environ, MCTX_SORT="quick")
+    r = subprocess.run([sys.executable, "-c",
+                        "import mccortex_tpu_torch.graph.build"],
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "MCTX_SORT" in r.stderr and "quick" in r.stderr
