@@ -19,10 +19,13 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    ops/kernels/bitonic.py, beside torch.sort.  The lookup kernel runs at
    W=1 and W=2 against a store of the E. coli graph's size (9.2M keys),
    with present, absent and sentinel queries, at a walker's batch (4096)
-   and a bulk batch (Q = N); beside it the plain bucket-row gather
-   (lookup_planar) and the sort-merge joins (lookup_join, variants lax
-   and mp) are timed, and the kernel's row bytes/s are set against the
-   card's 3.35 TB/s;
+   and a bulk batch (Q = N), on the 128-byte-row table the port uses
+   and on the reference-shaped 128-lane table (table bytes, rows read
+   per query and row bytes/s against the card's 3.35 TB/s for each);
+   beside it the plain bucket-row gather (lookup_planar) and the
+   sort-merge joins (lookup_join, variants lax and mp) are timed; then
+   on tables crowded by a forced small b_bits, where probes chain over
+   many rows and past the last row;
 4. the build path at real size: `mctx-torch build -k 31` (the CLI entry
    point, called in-process so the kernels' launch counts are visible)
    on 20x of 150 bp reads of a synthetic 4.6 Mb E. coli-sized genome,
@@ -503,6 +506,8 @@ def check_up_to_ties(torch, sops, label, got, want, nk):
 
 
 N_STORE = 9_165_696      # distinct kmers of the phase-4 E. coli build
+# (W, keys, b_bits) of the crowded lookup tables: fill 0.95, 0.95, 0.90
+CROWDED = ((1, 1_245_000, 17), (2, 747_000, 17), (4, 354_000, 17))
 
 
 def lookup_store(rng, n: int, W: int) -> np.ndarray:
@@ -528,6 +533,30 @@ def lookup_queries(rng, keys: np.ndarray, Q: int) -> np.ndarray:
     return q
 
 
+def rows_named(torch, kops, q, rows, b_bits) -> int:
+    """Distinct table rows that the probes of queries q read: the home
+    row of every live query and the rows its chain walks on to."""
+    live = rows > 0
+    home = kops.srl(kops.kmer_hash(q[live]), 64 - b_bits)
+    n = rows[live]
+    seen = [home]
+    for d in range(1, int(n.max()) if n.numel() else 0):
+        seen.append((home[n > d] + d) & ((1 << b_bits) - 1))
+    return int(torch.unique(torch.cat(seen)).numel())
+
+
+def check_lookup(torch, label, lookup, table, b_bits, q, W):
+    """The kernel against its plain version on one table, exact."""
+    idx, found = lookup.lookup_fused(table, q, b_bits, W)
+    want = lookup.lookup_plain(table, q, b_bits, W)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(torch, idx, want[0]),
+              max_abs_err(torch, found, want[1]))
+    if err:
+        fail(f"lookup {label}: kernel != plain (max abs err {err})")
+    return idx, found, err
+
+
 def phase_lookup(torch, results):
     from mccortex_tpu_torch.ops import hashidx
     from mccortex_tpu_torch.ops import kmer as kops
@@ -536,28 +565,60 @@ def phase_lookup(torch, results):
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(4)
+
+    def on_card(a, view):
+        return torch.from_numpy(a.view(view)).to(dev)
+
     for W in (1, 2):
-        t0 = time.perf_counter()
         keys_np = lookup_store(rng, N_STORE, W)
+        t0 = time.perf_counter()
+        t32, b32 = lookup.build_table32(keys_np)
+        host32 = time.perf_counter() - t0
+        t0 = time.perf_counter()
         t128, b128 = lookup.build_table128(keys_np)
+        host128 = time.perf_counter() - t0
         tplan, bplan = hashidx.build_table(keys_np)
-        keys = torch.from_numpy(keys_np.view(np.int64)).to(dev)
-        t128 = torch.from_numpy(t128.view(np.int32)).to(dev)
-        tplan = torch.from_numpy(tplan.view(np.int32)).to(dev)
-        print(f"lookup W={W}: store of {N_STORE} keys, 128-lane table "
-              f"2^{b128} rows, planar table 2^{bplan} rows (host build "
-              f"{time.perf_counter() - t0:.1f}s)")
+        keys = on_card(keys_np, np.int64)
+        # the table the port uses first, the reference-shaped one second
+        tables = {32: (on_card(t32, np.int32), b32),
+                  128: (on_card(t128, np.int32), b128)}
+        tplan = on_card(tplan, np.int32)
+        print(f"lookup W={W}: store of {N_STORE} keys; 128-byte-row table "
+              f"2^{b32} rows = {t32.nbytes} bytes, fill "
+              f"{N_STORE / (lookup.slots_for(W, 32) << b32):.3f} (host build "
+              f"{host32:.1f}s); 128-lane table 2^{b128} rows = {t128.nbytes} "
+              f"bytes (host build {host128:.1f}s); planar table 2^{bplan} "
+              f"rows")
+        if t32.nbytes > t128.nbytes:
+            fail(f"lookup W={W}: the 128-byte-row table is the larger one")
+        del t32, t128
         for Q in (4096, N_STORE):
-            q = torch.from_numpy(lookup_queries(rng, keys_np, Q).view(
-                np.int64)).to(dev)
-            idx, found = lookup.lookup_fused(t128, q, b128, W)
-            want = lookup.lookup_plain(t128, q, b128, W)
-            torch.cuda.synchronize()
-            err = max(max_abs_err(torch, idx, want[0]),
-                      max_abs_err(torch, found, want[1]))
-            if err:
-                fail(f"lookup W={W} Q={Q}: kernel != plain "
-                     f"(max abs err {err})")
+            q = on_card(lookup_queries(rng, keys_np, Q), np.int64)
+            reps = 20 if Q < N_STORE else 10
+            timed = {}
+            for R, (table, bb) in tables.items():
+                got = check_lookup(torch, f"W={W} Q={Q} row of {R}", lookup,
+                                   table, bb, q, W)
+                if R == 32:
+                    idx, found, err = got
+                elif not (torch.equal(got[0], idx) and
+                          torch.equal(got[1], found)):
+                    fail(f"lookup W={W} Q={Q}: the two tables disagree")
+                ms = time_ms(torch, lambda: lookup.lookup_fused(table, q, bb,
+                                                                W), reps)
+                plain = time_ms(
+                    torch, lambda: lookup.lookup_plain(table, q, bb, W), 5)
+                rows = lookup.rows_read(table, q, bb, W)
+                nrows = int(rows.sum())
+                rate = nrows * R * 4 / (ms * 1e-3)
+                timed[R] = (ms, plain, rows, bb)
+                print(f"lookup W={W} Q={Q}, rows of {R * 4} bytes: exact; "
+                      f"kernel {ms:.4f} ms ({Q / ms / 1e3:.2f}M lookups/s), "
+                      f"plain {plain:.4f} ms; "
+                      f"{nrows / max(1, int((rows > 0).sum())):.4f} rows read "
+                      f"per live query (most {int(rows.max())}), row bytes "
+                      f"{rate / 1e9:.1f} GB/s = "
+                      f"{100 * rate / HBM_BYTES_S:.1f} % of 3.35 TB/s")
             hit = found.nonzero()[:, 0]
             if not torch.equal(keys[idx[hit].long()], q[hit]):
                 fail(f"lookup W={W} Q={Q}: a found row holds another key")
@@ -567,44 +628,74 @@ def phase_lookup(torch, results):
                 if not (torch.equal(other[0], idx) and
                         torch.equal(other[1], found)):
                     fail(f"lookup W={W} Q={Q}: planar or a join disagrees")
-            reps = 20 if Q < N_STORE else 10
-            ms = time_ms(torch, lambda: lookup.lookup_fused(t128, q, b128, W),
-                         reps)
-            plain = time_ms(torch,
-                            lambda: lookup.lookup_plain(t128, q, b128, W), 5)
             planar = time_ms(
                 torch, lambda: hashidx.lookup_planar(tplan, q, bplan, W), 5)
             join = time_ms(torch, lambda: sops.lookup_join(keys, q), 3)
             join_mp = time_ms(
                 torch, lambda: sops.lookup_join(keys, q, variant="mp"), 3)
-            # sentinel queries skip the probe: rows read = non-sentinel
-            rows = int((q != -1).any(dim=1).sum())
-            rate = rows * 512 / (ms * 1e-3)
-            print(f"lookup W={W} Q={Q}: exact ({int(found.sum())} found); "
-                  f"kernel {ms:.4f} ms ({Q / ms / 1e3:.2f}M lookups/s, row "
-                  f"bytes {rate / 1e9:.1f} GB/s = "
-                  f"{100 * rate / HBM_BYTES_S:.1f} % of 3.35 TB/s), plain "
-                  f"{plain:.4f} ms, lookup_planar {planar:.4f} ms, "
-                  f"lookup_join {join:.4f} ms, lookup_join mp "
-                  f"{join_mp:.4f} ms")
+            print(f"lookup W={W} Q={Q}: {int(found.sum())} found; "
+                  f"lookup_planar {planar:.4f} ms, lookup_join {join:.4f} ms, "
+                  f"lookup_join mp {join_mp:.4f} ms")
             if W == 1 and Q == N_STORE:
                 ks, qs = keys[:, 0] ^ SIGN, (q[:, 0] ^ SIGN).contiguous()
                 lib = time_ms(torch, lambda: torch.searchsorted(ks, qs), 5)
                 print(f"lookup W={W} Q={Q}: torch.searchsorted of the "
                       f"queries in the sorted keys {lib:.4f} ms")
-                # every bucket row that a non-sentinel query names, once;
-                # the queries, idx and found; per query the hash and 128
-                # lane compares
-                live = q[(q != -1).any(dim=1)]
-                named = int(torch.unique(kops.srl(
-                    kops.kmer_hash(live), 64 - b128)).numel())
+                # every table row that a probe reads, once, at the row
+                # bytes of the table in use; the queries, idx and found;
+                # per query the hash and one compare per row word
+                ms, plain, rows, bb = timed[32]
                 results["lookup"] = row(
-                    err, ms, plain, named * 512 + nbytes_of(q, idx, found),
-                    Q * (24 + 128), lib)
-                del live
+                    err, ms, plain,
+                    rows_named(torch, kops, q, rows, bb) * 32 * 4
+                    + nbytes_of(q, idx, found), Q * (24 + 32), lib)
                 del ks, qs
-        del keys, t128, tplan, q, idx, found, want
+        del keys, tables, tplan, q, idx, found, timed, rows, table
         torch.cuda.empty_cache()
+
+    # a table filled almost to the brim by a forced small b_bits: chains of
+    # many rows, some past the last row
+    for W, n, bb in CROWDED:
+        S = lookup.slots_for(W, 32)
+        # random keys, and some three rows' worth whose home is the last row
+        pool = rng.integers(0, 1 << 62, size=(3 * S << bb, W),
+                            dtype=np.uint64)
+        pool = pool[hashidx._hash_np(pool) >> np.uint64(64 - bb)
+                    == (1 << bb) - 1]
+        keys_np = np.unique(np.concatenate([pool, rng.integers(
+            0, 1 << 62, size=(n, W), dtype=np.uint64)]), axis=0)
+        n = len(keys_np)
+        table_np, got_b = lookup.build_table32(keys_np, b_bits=bb)
+        if got_b != bb or len(pool) <= S:
+            fail(f"crowded table W={W}: b_bits grew to {got_b}, or the last "
+                 f"row does not overflow ({len(pool)} keys)")
+        keys, table = on_card(keys_np, np.int64), on_card(table_np, np.int32)
+        q = on_card(np.concatenate([keys_np,
+                                    lookup_queries(rng, keys_np, 500_001)]),
+                    np.int64)
+        idx, found, _err = check_lookup(torch, f"crowded table W={W}", lookup,
+                                        table, bb, q, W)
+        want = sops.lookup_join(keys, q)
+        if not (torch.equal(idx, want[0]) and torch.equal(found, want[1])):
+            fail(f"crowded table W={W}: the kernel and the join disagree")
+        if not (bool(found[:n].all()) and torch.equal(
+                idx[:n], torch.arange(n, device=dev, dtype=torch.int32))):
+            fail(f"crowded table W={W}: a stored key is not found in its row")
+        rows = lookup.rows_read(table, q, bb, W)
+        home = hashidx._hash_np(keys_np) >> np.uint64(64 - bb)
+        last = home == (1 << bb) - 1
+        wrapped = int((rows[:n][torch.from_numpy(last).to(dev)] > 1).sum())
+        if int(rows.max()) < 3 or wrapped == 0:
+            fail(f"crowded table W={W}: no chain of 3 rows, or none past the "
+                 f"last row")
+        print(f"lookup crowded table W={W}: {n} keys in 2^{bb} rows of {S} "
+              f"slots (fill {n / (S << bb):.3f}), {q.shape[0]} queries: exact "
+              f"against plain and the join; "
+              f"{float(rows[rows > 0].float().mean()):.3f} rows read per live "
+              f"query, most {int(rows.max())}; {wrapped} keys of the last "
+              f"row found past it")
+        del keys, table, q, idx, found, rows
+    torch.cuda.empty_cache()
 
 
 def run_cli(argv):

@@ -9,24 +9,39 @@
 // the key, most significant first, compared as uint32 (the sentinel
 // 0xFFFFFFFF sorts last; no sign flip is needed).
 //
-// Bound: memory bytes for every kernel here (each reads its records once
-// and writes them once; the compare network itself runs in shared
-// memory).  The sort as a whole is bound by its number of passes over
+// Bound: memory bytes for tail and butterfly (each reads its records once
+// and writes them once); the tile sort, 66 dependent substeps over a tile
+// that fits in a block, is bound by the latency of those substeps.  The
+// sort as a whole is bound by its number of passes over
 // device memory: with a tile of T records a full sort of M takes one
 // block sort, log2(M/T) tails and log2(M/T)*(log2(M/T)+1)/2 butterflies.
 //
-// Design: a thread block stages the nk key planes of its tile of 2048
-// records plus each record's index within the tile in shared memory, runs
-// the network on those (keys and index move together), then writes every
-// plane coalesced by gathering the source records through the index, so
-// shared memory holds (nk + 1) * 8 KB whatever np is.
-//   * block sort: the full network, stages 2..T.  Ties break on the source
-//     index, so the order is total: an ascending tile equals a stable sort
-//     and a descending tile is its exact reverse.  Tiles leave alternately
-//     ascending and descending (what the global network wants), or all
-//     ascending (what the merge tree of sort_planes_mp wants).  A ragged
-//     last tile is padded in shared memory with keys that sort after every
-//     record (ascending tiles only).
+// Design: a tile is 2048 records; a block sorts or merges one tile and then
+// writes every plane coalesced by gathering the source records through the
+// sorted source index, so only keys and an index move through the network,
+// whatever np is.
+//   * block sort: the full network, stages 2..T, 66 substeps.  Ties break
+//     on the source index, so the order is total: an ascending tile equals
+//     a stable sort and a descending tile is its exact reverse (any correct
+//     sort gives the same output).  Tiles leave alternately ascending and
+//     descending (what the global network wants), or all ascending (what
+//     the merge tree of sort_planes_mp wants).  A ragged last tile is
+//     padded with keys that sort after every record, index included
+//     (ascending tiles only).
+//     The TPU kernel runs the network over a 131,072-record VMEM block with
+//     lane rolls.  Here the tile is bound by latency, not bytes (one read
+//     and one write of 120 tiles is 6 MB), so the network stays out of
+//     shared memory wherever it can.  For up to 4 key planes (what build
+//     sorts at k <= 63) each of 256 threads keeps 8 consecutive records in
+//     registers, a record being its key planes packed two to a 64-bit word
+//     plus its source index: the 30 substeps of distance 1, 2, 4 are
+//     compare-exchanges between a thread's own registers, the 30 of
+//     distance 8..128 go through __shfl_xor_sync inside a warp, and only the
+//     6 of distance 256..1024 cross warps, through shared memory and two
+//     barriers each.  The tile always sorts ascending; a descending tile is
+//     written in reverse.  More key planes (up to 9, reached by the mp
+//     lookup join) take the network in shared memory that the other two
+//     kernels here use: a dispatch on nk, not a fallback.
 //   * tail: the substeps of distance T/2..1 of one merge stage in one pass;
 //     the direction is one bit of the tile's offset, or ascending at the
 //     last stage.  Keys alone are compared: equal keys never swap.
@@ -109,9 +124,12 @@ __device__ void store_tile(const int32_t* __restrict__ in, long long ld_in,
   }
 }
 
-__global__ void bt_blocksort(const int32_t* __restrict__ in, long long ld_in,
-                             int32_t* __restrict__ out, long long ld_out,
-                             int M, int nk, int np, int all_asc) {
+// the tile sort with its network in shared memory: any nk up to kMaxKeys
+__global__ void bt_blocksort_shared(const int32_t* __restrict__ in,
+                                    long long ld_in,
+                                    int32_t* __restrict__ out,
+                                    long long ld_out, int M, int nk, int np,
+                                    int all_asc) {
   extern __shared__ uint32_t smem[];  // nk key planes, then the index
   uint32_t* sk = smem;
   int* sidx = (int*)(smem + nk * kTile);
@@ -123,6 +141,161 @@ __global__ void bt_blocksort(const int32_t* __restrict__ in, long long ld_in,
     stage<true>(sk, sidx, nk, kk, last_asc);
   }
   store_tile(in, ld_in, out, ld_out, base, n, np, sidx);
+}
+
+// ---- the tile sort in registers: nk <= 2 * NW key planes -----------------
+
+constexpr int kRegs = 8;                   // records a thread keeps
+constexpr int kSortThreads = kTile / kRegs;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// a record in the network: its key planes two to a word, most significant
+// first, and its place in the tile before the sort
+template <int NW>
+struct Rec {
+  uint64_t k[NW];
+  uint32_t i;
+};
+
+template <int NW>
+__device__ __forceinline__ bool rec_less(const Rec<NW>& a, const Rec<NW>& b) {
+  bool lt = a.i < b.i;
+#pragma unroll
+  for (int w = NW - 1; w >= 0; --w) {
+    lt = a.k[w] < b.k[w] || (a.k[w] == b.k[w] && lt);
+  }
+  return lt;
+}
+
+// lo before hi when asc, hi before lo otherwise (no two records are equal)
+template <int NW>
+__device__ __forceinline__ void cmpx(Rec<NW>& lo, Rec<NW>& hi, bool asc) {
+  if (rec_less(hi, lo) == asc) {
+    const Rec<NW> t = lo;
+    lo = hi;
+    hi = t;
+  }
+}
+
+// keep the smaller of mine and other when keep_min, else the larger
+template <int NW>
+__device__ __forceinline__ void keep(Rec<NW>& mine, const Rec<NW>& other,
+                                     bool keep_min) {
+  if (rec_less(other, mine) == keep_min) mine = other;
+}
+
+// The substeps of distance kRegs/2 .. 1 of stage kk, between a thread's own
+// records; pos0 = the tile position of its first record.
+template <int NW>
+__device__ __forceinline__ void reg_substeps(Rec<NW> (&rec)[kRegs], int pos0,
+                                             int kk) {
+#pragma unroll
+  for (int j = kRegs / 2; j >= 1; j >>= 1) {
+    if (j < kk) {
+#pragma unroll
+      for (int r = 0; r < kRegs; ++r) {
+        if ((r & j) == 0) cmpx(rec[r], rec[r | j], ((pos0 + r) & kk) == 0);
+      }
+    }
+  }
+}
+
+template <int NW>
+__global__ void __launch_bounds__(kSortThreads)
+    bt_blocksort_regs(const int32_t* __restrict__ in, long long ld_in,
+                      int32_t* __restrict__ out, long long ld_out, int M,
+                      int nk, int np, int all_asc) {
+  // the cross-warp exchange: word w of the thread t's record r at
+  // [w][r * kSortThreads + t]; afterwards sidx holds the sorted source
+  // index, position p at [p + p / 32] (no bank conflict either way)
+  __shared__ uint64_t sk[NW][kTile];
+  __shared__ uint32_t sidx[kTile + kTile / 32];
+  const int t = threadIdx.x;
+  const int pos0 = t * kRegs;
+  const long long base = (long long)blockIdx.x * kTile;
+  const int n = (int)min((long long)kTile, (long long)M - base);
+
+  Rec<NW> rec[kRegs];
+#pragma unroll
+  for (int r = 0; r < kRegs; ++r) {
+    const int pos = pos0 + r;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      uint64_t x = ~0ull;                  // past n: sorts last
+      if (pos < n) {                       // 2 NW - 2 < nk: plane 2w is a key
+        const uint32_t hi = (uint32_t)in[(2 * w) * ld_in + base + pos];
+        const uint32_t lo = 2 * w + 1 < nk
+            ? (uint32_t)in[(2 * w + 1) * ld_in + base + pos] : 0u;
+        x = ((uint64_t)hi << 32) | lo;
+      }
+      rec[r].k[w] = x;
+    }
+    rec[r].i = (uint32_t)pos;
+  }
+
+  // stages that fit a thread's own records
+#pragma unroll
+  for (int kk = 2; kk <= kRegs; kk <<= 1) reg_substeps<NW>(rec, pos0, kk);
+
+#pragma unroll 1
+  for (int kk = 2 * kRegs; kk <= kTile; kk <<= 1) {
+    const bool asc = (pos0 & kk) == 0;     // the same for a thread's records
+#pragma unroll 1
+    for (int j = kk >> 1; j >= kRegs; j >>= 1) {
+      const int d = j / kRegs;             // the partner is thread t ^ d
+      const bool keep_min = ((t & d) == 0) == asc;
+      if (d < 32) {
+#pragma unroll
+        for (int r = 0; r < kRegs; ++r) {
+          Rec<NW> o;
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            o.k[w] = __shfl_xor_sync(kFullMask, rec[r].k[w], d);
+          }
+          o.i = __shfl_xor_sync(kFullMask, rec[r].i, d);
+          keep(rec[r], o, keep_min);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < kRegs; ++r) {
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            sk[w][r * kSortThreads + t] = rec[r].k[w];
+          }
+          sidx[r * kSortThreads + t] = rec[r].i;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < kRegs; ++r) {
+          Rec<NW> o;
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            o.k[w] = sk[w][r * kSortThreads + (t ^ d)];
+          }
+          o.i = sidx[r * kSortThreads + (t ^ d)];
+          keep(rec[r], o, keep_min);
+        }
+        __syncthreads();
+      }
+    }
+    reg_substeps<NW>(rec, pos0, kk);
+  }
+
+  // the tile is ascending; an odd tile leaves in reverse unless all_asc
+#pragma unroll
+  for (int r = 0; r < kRegs; ++r) {
+    const int pos = pos0 + r;
+    sidx[pos + (pos >> 5)] = rec[r].i;
+  }
+  __syncthreads();
+  const bool desc = !all_asc && (blockIdx.x & 1) != 0;
+  for (int p = 0; p < np; ++p) {
+    for (int j = t; j < n; j += kSortThreads) {
+      const int src = desc ? kTile - 1 - j : j;
+      out[p * ld_out + base + j] =
+          in[p * ld_in + base + sidx[src + (src >> 5)]];
+    }
+  }
 }
 
 __global__ void bt_tail(const int32_t* __restrict__ in, long long ld_in,
@@ -183,12 +356,21 @@ extern "C" int mctx_bitonic_blocksort(const void* in, void* out, int M,
                                       int nk, int np, int ld_in, int ld_out,
                                       int all_asc, void* stream) {
   if (nk < 1 || nk > kMaxKeys) return (int)cudaErrorInvalidValue;
-  const int bytes = (nk + 1) * kTile * 4;
-  cudaError_t e = allow_shared(bt_blocksort, bytes);
-  if (e != cudaSuccess) return (int)e;
   const int ntiles = (int)(((long long)M + kTile - 1) / kTile);
-  bt_blocksort<<<ntiles, kThreads, bytes, (cudaStream_t)stream>>>(
-      (const int32_t*)in, ld_in, (int32_t*)out, ld_out, M, nk, np, all_asc);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nk <= 2) {
+    bt_blocksort_regs<1><<<ntiles, kSortThreads, 0, st>>>(
+        (const int32_t*)in, ld_in, (int32_t*)out, ld_out, M, nk, np, all_asc);
+  } else if (nk <= 4) {
+    bt_blocksort_regs<2><<<ntiles, kSortThreads, 0, st>>>(
+        (const int32_t*)in, ld_in, (int32_t*)out, ld_out, M, nk, np, all_asc);
+  } else {
+    const int bytes = (nk + 1) * kTile * 4;
+    cudaError_t e = allow_shared(bt_blocksort_shared, bytes);
+    if (e != cudaSuccess) return (int)e;
+    bt_blocksort_shared<<<ntiles, kThreads, bytes, st>>>(
+        (const int32_t*)in, ld_in, (int32_t*)out, ld_out, M, nk, np, all_asc);
+  }
   return (int)cudaGetLastError();
 }
 

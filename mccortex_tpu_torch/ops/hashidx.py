@@ -6,14 +6,21 @@ table answers a batch of queries with one bucket-row read per query:
 
   planar table (build_table): (B, P*EPR) uint32, P = 2W+1 planes laid
       out plane-major [w0_hi | w0_lo | ... | row_idx], EPR slots each;
-  128-lane table (kernels.lookup.build_table128): one 512-byte row per
-      bucket, S = 128 // P slots per plane; the CUDA kernel's table.
+  128-byte-row table (kernels.lookup.build_table32): one 128-byte line
+      of device memory per row, S = 32 // P slots per plane, about half
+      full; a full row's further keys sit in the next row.  The lookup
+      kernel's table.
+
+(kernels.lookup.build_table128, the JAX package's 512-byte row of 128
+lanes per bucket, is kept as a copy of the reference's layout; the
+kernel reads it too, but no lookup here builds it.)
 
 bucket(key) = kmer_hash(key) >> (64 - b_bits).  Empty slots hold
 0xFFFFFFFF, which no valid canonical kmer has in its top word (k odd).
 Tables are built on the host in numpy (as the JAX package does) and
-copied to the keys' device; the host build grows b_bits until no bucket
-overflows, so the index is exact.
+copied to the keys' device.  Either the host build grows b_bits until no
+bucket overflows (planar), or the probe follows a full row into the next
+one (128-byte rows); both ways the index is exact.
 
 `lookup` picks an implementation from MCTX_LOOKUP (auto|planar|fused|
 join):
@@ -152,7 +159,7 @@ def lookup_planar(table: torch.Tensor, queries: torch.Tensor, b_bits: int,
 # ---------------------------------------------------------------------------
 
 _cache_store: dict = {}
-_cache128: dict = {}
+_cache32: dict = {}
 
 
 def _live_host_keys(keys: torch.Tensor) -> np.ndarray:
@@ -182,11 +189,11 @@ def get_index_for(keys: torch.Tensor):
     return _cached(_cache_store, keys, build_table)
 
 
-def get_index128_for(keys: torch.Tensor):
-    """Cached (128-lane table on keys' device, b_bits) for the lookup
+def get_index32_for(keys: torch.Tensor):
+    """Cached (128-byte-row table on keys' device, b_bits) for the lookup
     kernel."""
     from .kernels import lookup as klookup
-    return _cached(_cache128, keys, klookup.build_table128)
+    return _cached(_cache32, keys, klookup.build_table32)
 
 
 def _pick_impl(n_store: int, n_queries: int, device="cpu") -> str:
@@ -226,7 +233,7 @@ def lookup(keys: torch.Tensor, queries: torch.Tensor):
         idx, found = _chunked(lambda c: sops.lookup_join(keys, c), q)
     elif impl == "fused":
         from .kernels import lookup as klookup
-        table, b_bits = get_index128_for(keys)
+        table, b_bits = get_index32_for(keys)
         idx, found = klookup.lookup_fused(table, q, b_bits, W)
     else:
         table, b_bits = get_index_for(keys)

@@ -18,6 +18,13 @@ on every plane.
 The plain versions follow the kernels' tiling (sort each tile, then the
 same compare-exchange network), and take a `tile` argument so that
 tests can use small tiles; the kernels' tile is fixed at TILE.
+
+The tile sort's order is total, so how a tile gets sorted is the
+kernel's own business: for up to 4 key planes it keeps 8 records a
+thread in registers and runs the network through registers and warp
+shuffles, with shared memory only for the 6 substeps that cross warps;
+above that (up to MAX_KEYS) it runs the network in shared memory, as
+the tail does.  Both give `block_sort_plain`'s output bit for bit.
 """
 
 from __future__ import annotations

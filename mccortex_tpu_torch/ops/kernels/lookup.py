@@ -1,9 +1,37 @@
-"""Batched hash-bucket lookup against the 128-lane table.
+"""Batched hash-bucket lookup: (Q, W) kmer keys -> (store row, found).
 
 Counterpart of mccortex_tpu/ops/pallas/lookup.py (`build_table128`,
-`lookup_fused`); kernel in csrc/lookup.cu.  The table is one 512-byte
-row of 128 uint32 per bucket: S = 128 // (2W+1) slots of each plane
-[w0_hi | w0_lo | ... | row_idx | pad], empty slots 0xFFFFFFFF.
+`lookup_fused`); kernel in csrc/lookup.cu.
+
+Two table geometries, one layout.  A table is B = 2**b_bits rows of R
+uint32; a row holds S = R // (2W+1) slots, plane-major
+[w0_hi x S | w0_lo x S | ... | row_idx x S | pad], filled from the
+front, empty and pad words 0xFFFFFFFF; a key's home row is
+kmer_hash(key) >> (64 - b_bits).
+
+  R = 32 (`build_table32`): the card's table.  A row is one 128-byte
+      line of device memory, S = 10, 6, 4, 3 slots at W = 1..4, filled
+      to about one half.  A row that is full sends its further keys to
+      the next row (modulo B), so the table never has to grow to fit
+      the fullest bucket.  `hashidx.lookup` uses this one.
+  R = 128 (`build_table128`): the JAX package's table, byte for byte
+      (a 128-lane vector of the TPU per bucket, filled to 0.35, grown
+      until no bucket overflows).  Kept as the copy of the reference's
+      layout; `chip_smoke.py` times it beside the other.
+
+The plane-major order is kept for R = 32 too, rather than a slot-major
+one: one kernel template and one plain version then serve both widths
+with the same index arithmetic, and the kernel's compares run from
+registers either way (a word's plane and slot follow from its position
+in the row).
+
+One probe serves both.  It starts at the home row and ends at a hit or
+at the first row with an empty slot (its last slot is empty); a full
+row without a hit sends it to the next row.  That is exact for
+`build_table32`, which keeps the invariant that a key stored d rows
+from home has d full rows before it, and for `build_table128`,
+whose keys all sit in their home row.  A probe reads at most B rows, so
+a table without any empty slot ends it too.
 """
 
 from __future__ import annotations
@@ -16,13 +44,28 @@ from .. import sorted as sops
 from ..hashidx import _hash_np, query_planes
 from . import _build
 
-LANES = 128
+LANES = 128              # uint32 per row of the reference-shaped table
+ROW32 = 32               # uint32 per row of the card's table: 128 bytes
+ROW_WIDTHS = (ROW32, LANES)
+OCC32 = 0.5              # target mean fill of the card's table
 MAX_W = 4                # the kernel is instantiated for W = 1..4
 _EMPTY = np.uint32(0xFFFFFFFF)
 
 
-def slots_for(W: int) -> int:
-    return LANES // (2 * W + 1)
+def slots_for(W: int, row_words: int = LANES) -> int:
+    return row_words // (2 * W + 1)
+
+
+def _write_slots(table, S, keys_np, rows, slots, store_rows):
+    """Key words and store row of each key into (rows, slot) of the
+    plane-major table."""
+    for w in range(keys_np.shape[1]):
+        kw = keys_np[store_rows, w]
+        table[rows, (2 * w) * S + slots] = (kw >> np.uint64(32)).astype(
+            np.uint32)
+        table[rows, (2 * w + 1) * S + slots] = kw.astype(np.uint32)
+    table[rows, 2 * keys_np.shape[1] * S + slots] = store_rows.astype(
+        np.uint32)
 
 
 def build_table128(keys_np: np.ndarray, occ: float = 0.35,
@@ -51,45 +94,117 @@ def build_table128(keys_np: np.ndarray, occ: float = 0.35,
     start = np.searchsorted(sb, np.arange(B))
     rank = (np.arange(n) - start[sb]).astype(np.int64)
     table = np.full((B, LANES), _EMPTY, np.uint32)
-    for w in range(W):
-        kw = keys_np[order, w]
-        table[sb, (2 * w) * S + rank] = (kw >> np.uint64(32)).astype(
-            np.uint32)
-        table[sb, (2 * w + 1) * S + rank] = kw.astype(np.uint32)
-    table[sb, 2 * W * S + rank] = order.astype(np.uint32)
+    _write_slots(table, S, keys_np, sb, rank, order)
     return table, b_bits
+
+
+def build_table32(keys_np: np.ndarray, b_bits: int | None = None):
+    """Build the 128-byte-row table from live (n, W) uint64 keys (host
+    numpy).  Returns (table (B, 32) uint32, b_bits).
+
+    b_bits defaults to the smallest with a mean fill of at most OCC32 of
+    the S slots; a given b_bits is raised only as far as the keys need
+    to fit at all (n <= B * S).  Keys go to their home row in store
+    order; the keys a row cannot take move to the next row (modulo B)
+    and are placed there after that row's own, round after round until
+    none is left.  A key only ever leaves a row that this round fills,
+    so a key stored d rows from home has d full rows before it."""
+    n, W = keys_np.shape
+    S = slots_for(W, ROW32)
+    if b_bits is None:
+        b_bits = max(1, int(np.ceil(np.log2(max(1.0, n / (S * OCC32))))))
+    while n > (S << b_bits):
+        b_bits += 1
+    B = 1 << b_bits
+    table = np.full((B, ROW32), _EMPTY, np.uint32)
+    fill = np.zeros(B, np.int64)
+    # one word per key still to place: its row above its store row, so
+    # that a plain sort orders the keys by row and, within a row, by
+    # store row (much faster than a stable argsort of the rows)
+    low = np.uint64(0xFFFFFFFF)
+    todo = ((_hash_np(keys_np) >> np.uint64(64 - b_bits)) << np.uint64(32)) \
+        | np.arange(n, dtype=np.uint64)
+    while len(todo):
+        todo.sort()
+        row = (todo >> np.uint64(32)).astype(np.int64)
+        store = (todo & low).astype(np.int64)
+        starts = np.flatnonzero(np.r_[True, row[1:] != row[:-1]])
+        first = np.repeat(starts, np.diff(np.r_[starts, len(row)]))
+        slot = fill[row] + np.arange(len(row)) - first
+        fits = slot < S
+        _write_slots(table, S, keys_np, row[fits], slot[fits], store[fits])
+        fill += np.bincount(row[fits], minlength=B)
+        todo = ((((row[~fits] + 1) & (B - 1)).astype(np.uint64)
+                 << np.uint64(32)) | (todo[~fits] & low))
+    return table, b_bits
+
+
+def _probe_plain(table: torch.Tensor, queries: torch.Tensor, b_bits: int,
+                 W: int):
+    """(idx, found, rows read) per flat query: the chained probe in plain
+    PyTorch, one gather of the pending queries' rows per chain step."""
+    S = slots_for(W, table.shape[1])
+    B = 1 << b_bits
+    q = queries.reshape(-1, W)
+    dev = q.device
+    idx = torch.zeros(q.shape[0], dtype=torch.int32, device=dev)
+    found = torch.zeros(q.shape[0], dtype=torch.bool, device=dev)
+    rows = torch.zeros(q.shape[0], dtype=torch.int32, device=dev)
+    # sentinel queries are never found and read no row (they would match
+    # the empty slots)
+    sel = (~sops.is_sentinel(q)).nonzero()[:, 0]
+    bkt = kops.srl(kops.kmer_hash(q[sel]), 64 - b_bits)
+    planes = [p[sel] for p in query_planes(q)]
+    for _ in range(B):
+        if sel.numel() == 0:
+            break
+        row = table[bkt]                               # (pending, R)
+        eq = torch.ones((sel.numel(), S), dtype=torch.bool, device=dev)
+        for p, qp in enumerate(planes):
+            eq &= row[:, p * S:(p + 1) * S] == qp[:, None]
+        hit = eq.any(dim=-1)
+        best = torch.where(eq, row[:, 2 * W * S:(2 * W + 1) * S], 0)
+        idx[sel[hit]] = best.amax(dim=-1)[hit]
+        found[sel[hit]] = True
+        rows[sel] += 1
+        # slots fill from the front, and an empty slot has all ones in its
+        # top-word plane, which no live key has: the row is full iff its
+        # last slot is taken
+        go = ~hit & (row[:, S - 1] != -1)
+        sel, bkt = sel[go], (bkt[go] + 1) & (B - 1)
+        planes = [p[go] for p in planes]
+    return idx, found, rows
 
 
 def lookup_plain(table: torch.Tensor, queries: torch.Tensor, b_bits: int,
                  W: int):
-    """Plain PyTorch version of the kernel (any device): the hash, one
-    gather of the (Q, 128) bucket rows, the section compares."""
-    S = slots_for(W)
-    q = queries.reshape(-1, W)
-    bkt = kops.srl(kops.kmer_hash(q), 64 - b_bits)
-    row = table[bkt]                                   # (Q, 128)
-    eq = torch.ones((q.shape[0], S), dtype=torch.bool, device=q.device)
-    for p, qp in enumerate(query_planes(q)):
-        eq &= row[:, p * S:(p + 1) * S] == qp[:, None]
-    # found is masked by valid before idx is zeroed: a sentinel query
-    # matches the empty slots
-    found = eq.any(dim=-1) & ~sops.is_sentinel(q)
-    best = torch.where(eq, row[:, 2 * W * S:(2 * W + 1) * S], 0)
-    idx = torch.where(found, best.amax(dim=-1), 0)
+    """Plain PyTorch version of the kernel (any device, either row
+    width): the hash, the home rows, the section compares, and the next
+    row for the queries whose row was full without a hit."""
+    idx, found, _rows = _probe_plain(table, queries, b_bits, W)
     return (idx.reshape(queries.shape[:-1]),
             found.reshape(queries.shape[:-1]))
 
 
+def rows_read(table: torch.Tensor, queries: torch.Tensor, b_bits: int,
+              W: int) -> torch.Tensor:
+    """Table rows the probe reads for each query (0 for a sentinel)."""
+    return _probe_plain(table, queries, b_bits, W)[2].reshape(
+        queries.shape[:-1])
+
+
 def lookup_fused(table: torch.Tensor, queries: torch.Tensor, b_bits: int,
                  W: int):
-    """(idx int32, found bool) per query key (..., W) int64 against the
-    (2**b_bits, 128) int32 table: idx is the store row when found, else
-    0; sentinel queries are never found.  Launches csrc/lookup.cu for
-    CUDA tensors, the plain version for CPU tensors."""
+    """(idx int32, found bool) per query key (..., W) int64 against a
+    (2**b_bits, 32) or (2**b_bits, 128) int32 table: idx is the store
+    row when found, else 0; sentinel queries are never found.  Launches
+    csrc/lookup.cu for CUDA tensors, the plain version for CPU
+    tensors."""
     if not 1 <= b_bits <= 31 or table.dtype != torch.int32 or \
-            table.dim() != 2 or table.shape[1] != LANES or \
+            table.dim() != 2 or table.shape[1] not in ROW_WIDTHS or \
             table.shape[0] != 1 << b_bits:
-        raise ValueError(f"table must be (2**{b_bits}, {LANES}) int32")
+        raise ValueError(f"table must be (2**{b_bits}, {ROW32}) or "
+                         f"(2**{b_bits}, {LANES}) int32")
     if queries.dtype != torch.int64 or queries.shape[-1] != W:
         raise ValueError(f"queries must be (..., {W}) int64 words")
     if not 1 <= W <= MAX_W:
@@ -112,9 +227,10 @@ def lookup_fused(table: torch.Tensor, queries: torch.Tensor, b_bits: int,
     idx = torch.empty(Q, dtype=torch.int32, device=dev)
     found = torch.empty(Q, dtype=torch.bool, device=dev)
     if Q:
-        fn = _build.function("lookup", "mctx_lookup", 4, 3)
+        fn = _build.function("lookup", "mctx_lookup", 4, 4)
         with torch.cuda.device(dev):
             rc = fn(q.data_ptr(), table.data_ptr(), idx.data_ptr(),
-                    found.data_ptr(), Q, W, b_bits, _build.stream_of(q))
+                    found.data_ptr(), Q, W, b_bits, table.shape[1],
+                    _build.stream_of(q))
         _build.check(rc, "lookup")
     return idx.reshape(qshape), found.reshape(qshape)

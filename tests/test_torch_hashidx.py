@@ -56,7 +56,7 @@ def _queries(seed, keys, nq):
     return q
 
 
-@pytest.fixture(scope="module", params=[1, 2], ids=["W1", "W2"])
+@pytest.fixture(scope="module", params=[1, 2, 3], ids=["W1", "W2", "W3"])
 def case(request):
     """A store, its queries and JAX's answers through every lookup."""
     W = request.param
@@ -142,6 +142,158 @@ def test_lookup_plain_and_fused_on_cpu_match_jax_kernel(case):
     assert idx.shape == found.shape == (40, 50)
 
 
+def _truth(keys, q):
+    """(idx, found) by a search in the sorted unique keys (numpy)."""
+    order = np.lexsort(keys.T[::-1])
+    assert np.array_equal(order, np.arange(len(keys)))
+    view = [tuple(r) for r in keys.tolist()]
+    pos = {k: i for i, k in enumerate(view)}
+    idx = np.array([pos.get(tuple(r), -1) for r in q.tolist()], np.int64)
+    found = (idx >= 0) & ~(q == SENT).all(axis=1)
+    return np.where(found, idx, 0).astype(np.int32), found
+
+
+def _table32_layout(table, keys, bb):
+    """Decode a 128-byte-row table: per stored key its store row, table
+    row and slot; per table row its fill."""
+    W = keys.shape[1]
+    S = tl.slots_for(W, tl.ROW32)
+    assert table.shape == (1 << bb, tl.ROW32) and table.dtype == np.uint32
+    idxp = table[:, 2 * W * S:(2 * W + 1) * S]
+    used = idxp != 0xFFFFFFFF
+    fill = used.sum(axis=1)
+    # slots fill from the front, the pad words stay empty
+    assert np.array_equal(used, np.arange(S)[None, :] < fill[:, None])
+    assert (table[:, (2 * W + 1) * S:] == 0xFFFFFFFF).all()
+    r, s = np.nonzero(used)
+    store = idxp[r, s].astype(np.int64)
+    for w in range(W):
+        got = (table[r, 2 * w * S + s].astype(np.uint64) << np.uint64(32)) \
+            | table[r, (2 * w + 1) * S + s].astype(np.uint64)
+        np.testing.assert_array_equal(got, keys[store, w])
+    return store, r, fill, S
+
+
+@pytest.mark.parametrize("W,n,b_bits", [(1, 3000, None), (2, 3000, None),
+                                        (3, 3000, None), (4, 500, None),
+                                        (1, 2500, 8), (2, 1500, 8),
+                                        (3, 1000, 8), (1, 20, 1),
+                                        (1, 3000, 1)])
+def test_table32_invariant(W, n, b_bits):
+    """Every live key is stored once; a key stored d rows from home has
+    d full rows before it (modulo the number of rows)."""
+    keys = _keys(80 + W, n, W)
+    table, bb = tl.build_table32(keys, b_bits=b_bits)
+    store, r, fill, S = _table32_layout(table, keys, bb)
+    B = 1 << bb
+    np.testing.assert_array_equal(np.sort(store), np.arange(len(keys)))
+    home = (th._hash_np(keys) >> np.uint64(64 - bb)).astype(np.int64)[store]
+    d = (r - home) % B
+    full = np.concatenate([[0], np.cumsum(np.tile(fill == S, 2))])
+    # rows home .. home+d-1 (modulo B) are all full
+    np.testing.assert_array_equal(full[home + d] - full[home], d)
+    if b_bits is None:
+        assert len(keys) <= tl.OCC32 * S * B < 2 * len(keys) + 2 * S
+        assert d.max() <= 6 and (d > 0).mean() < 0.15
+    else:
+        assert bb == max(b_bits, int(np.ceil(np.log2(len(keys) / S))))
+
+
+def test_table32_plain_lookup_matches_jax_kernel(case):
+    """The 128-byte-row table gives the answers of JAX's lookup_fused on
+    its own 128-lane table."""
+    W, keys, q = case["W"], case["keys"], case["q"]
+    table, bb = tl.build_table32(keys)
+    tt = torch.from_numpy(table.view(np.int32))
+    _check(tl.lookup_plain(tt, _t(q), bb, W), case["want"]["fused"])
+    _check(tl.lookup_fused(tt, _t(q), bb, W), case["want"]["fused"])
+    idx, found = tl.lookup_fused(tt, _t(q[:2000]).reshape(40, 50, W), bb, W)
+    assert idx.shape == found.shape == (40, 50)
+    rows = tl.rows_read(tt, _t(q), bb, W).numpy()
+    assert ((rows == 0) == (q == SENT).all(axis=1)).all()
+    assert rows.max() <= 6 and rows[rows > 0].mean() < 1.2
+
+
+@pytest.mark.parametrize("W,n,b_bits", [(1, 2500, 8), (2, 1500, 8),
+                                        (3, 1000, 8), (4, 700, 8)])
+def test_table32_forced_chains_and_wrap(W, n, b_bits):
+    """A small b_bits fills the table almost to the brim: chains of two
+    and more rows, a chain that wraps past the last row, present, absent
+    and sentinel queries."""
+    keys = _keys(90 + W, n, W)
+    table, bb = tl.build_table32(keys, b_bits=b_bits)
+    assert bb == b_bits
+    store, r, fill, S = _table32_layout(table, keys, bb)
+    home = (th._hash_np(keys) >> np.uint64(64 - bb)).astype(np.int64)[store]
+    assert ((r - home) % (1 << bb)).max() >= 2
+    assert (r < home).any()                     # stored past the last row
+    q = np.concatenate([keys, _queries(95 + W, keys, 1501)])
+    tt = torch.from_numpy(table.view(np.int32))
+    want = _truth(keys, q)
+    _check(tl.lookup_plain(tt, _t(q), bb, W), want)
+    _check(tl.lookup_fused(tt, _t(q), bb, W), want)
+    assert want[1][:len(keys)].all() and not want[1].all()
+    rows = tl.rows_read(tt, _t(q), bb, W).numpy()
+    assert rows.max() >= 3 and rows.max() <= 1 << bb
+    # a present key is found in the row where it is stored
+    np.testing.assert_array_equal(
+        rows[:len(keys)][store], (r - home) % (1 << bb) + 1)
+
+
+def test_table32_without_an_empty_slot_ends_every_probe():
+    keys = _keys(7, 40, 1)[:20]
+    table, bb = tl.build_table32(keys, b_bits=1)
+    assert bb == 1 and (table[:, :30] != 0xFFFFFFFF).all()
+    q = np.concatenate([keys, _keys(8, 50, 1), np.full((3, 1), SENT)])
+    tt = torch.from_numpy(table.view(np.int32))
+    _check(tl.lookup_plain(tt, _t(q), bb, 1), _truth(keys, q))
+    assert int(tl.rows_read(tt, _t(q), bb, 1).max()) == 2
+
+
+@pytest.mark.parametrize("W", [1, 2])
+def test_chained_probe_on_a_crowded_128_lane_table_matches_jax(W):
+    """The reference-shaped table filled until rows are full: the probe
+    walks on from a full row and still gives JAX's answers."""
+    pool = _keys(20 + W, 4000, W)
+    S, bb = tl.slots_for(W), 4
+    home = (th._hash_np(pool) >> np.uint64(64 - bb)).astype(np.int64)
+    order = np.argsort(home, kind="stable")
+    rank = np.empty(len(pool), np.int64)
+    rank[order] = np.arange(len(pool)) - np.searchsorted(home[order],
+                                                         home[order])
+    keys = pool[(rank < S) & ((home % 3 == 0) | (rank < 20))]
+    table, got_b = tl.build_table128(keys, b_bits=bb)
+    want_t, want_b = jpl.build_table128(keys, b_bits=bb)
+    assert got_b == want_b == bb
+    np.testing.assert_array_equal(table, want_t)
+    full = (table[:, :S] != 0xFFFFFFFF).all(axis=1)
+    assert full[0] and full[15] and not full[1]     # a wrap from the last row
+    q = np.concatenate([_queries(25 + W, keys, 1001), pool[::3]])
+    want = jpl.lookup_fused(jnp.asarray(want_t), jnp.asarray(q), want_b, W,
+                            interpret=True)
+    tt = torch.from_numpy(table.view(np.int32))
+    _check(tl.lookup_plain(tt, _t(q), bb, W),
+           (np.asarray(want[0]), np.asarray(want[1])))
+    np.testing.assert_array_equal(np.asarray(want[0]), _truth(keys, q)[0])
+    assert int(tl.rows_read(tt, _t(q), bb, W).max()) >= 2
+
+
+def test_lookup_fused_equals_planar_and_join(monkeypatch, case):
+    W, keys, q = case["W"], case["keys"], case["q"]
+    kt = _t(np.concatenate([keys, np.full((33, W), SENT)]))
+    got = {}
+    for impl in ("fused", "planar", "join"):
+        monkeypatch.setattr(th, "LOOKUP_IMPL", impl)
+        got[impl] = th.lookup(kt, _t(q).reshape(3, 667, W))
+    table, bb = th.get_index32_for(kt)
+    assert table.shape == (1 << bb, tl.ROW32) and table.dtype == torch.int32
+    for impl in ("planar", "join"):
+        assert torch.equal(got[impl][0], got["fused"][0])
+        assert torch.equal(got[impl][1], got["fused"][1])
+    _check((got["fused"][0].reshape(-1), got["fused"][1].reshape(-1)),
+           _truth(keys, q))
+
+
 def test_lookup_planar_and_join_match_jax(case):
     W, keys, q = case["W"], case["keys"], case["q"]
     table, bb = th.build_table(keys)
@@ -171,7 +323,7 @@ def test_lookup_under_each_mctx_lookup(monkeypatch, case, impl):
     _check(got, (np.asarray(want[0]), np.asarray(want[1])))
     # the table is cached on the key tensor itself
     if impl in ("fused", "planar"):
-        cache = th._cache128 if impl == "fused" else th._cache_store
+        cache = th._cache32 if impl == "fused" else th._cache_store
         hit = cache[(id(kt), tuple(kt.shape))]
         assert hit[0] is kt
         assert th.lookup(kt, _t(q))[0].equal(got[0])
@@ -205,9 +357,9 @@ def test_pick_impl_gate(monkeypatch):
         th._pick_impl(5, 5)
 
 
-def test_lookup_join_mp_is_not_ported():
-    """Once the refusal of variant="mp"; it is ported now: an unknown
-    variant is what raises, and more key planes than the kernels stage."""
+def test_lookup_join_mp_runs_and_rejects_unknown_variant_and_wide_keys():
+    """variant="mp" runs; an unknown variant raises, and so do more key
+    planes than the kernels stage."""
     keys = _t(_keys(1, 10, 1))
     idx, found = tsops.lookup_join(keys, keys, variant="mp")
     assert found.all() and torch.equal(idx, torch.arange(10, dtype=torch.int32))
@@ -298,6 +450,12 @@ def test_lookup_fused_checks_its_arguments():
         tl.lookup_fused(tt, _t(keys).to(torch.int32), bb, 1)
     with pytest.raises(ValueError, match="queries"):
         tl.lookup_fused(tt, _t(keys), bb, 2)
+    with pytest.raises(ValueError, match="table"):
+        tl.lookup_fused(tt[:, :64].contiguous(), _t(keys), bb, 1)
+    t32, b32 = tl.build_table32(keys)
+    with pytest.raises(ValueError, match="table"):
+        tl.lookup_fused(torch.from_numpy(t32.view(np.int32)), _t(keys),
+                        b32 - 1, 1)
     idx, found = tl.lookup_fused(tt, _t(keys[:0]), bb, 1)
     assert idx.shape == found.shape == (0,)
 

@@ -115,11 +115,14 @@ def test_build_on_card_matches_cpu(cuda, k):
     assert torch.equal(sops.sort_by_key(keys)[0], keys)
 
 
-def _lookup_case(W, n, Q, seed, b_bits=None, absent=False, sentinel=False):
+def _lookup_case(W, n, Q, seed, b_bits=None, absent=False, sentinel=False,
+                 row_words=32):
     rng = np.random.default_rng(seed)
     keys = np.unique(rng.integers(0, 1 << 62, size=(n, W), dtype=np.uint64),
                      axis=0)
-    table, bb = lookup.build_table128(keys, b_bits=b_bits)
+    build = lookup.build_table32 if row_words == 32 else lookup.build_table128
+    table, bb = build(keys, b_bits=b_bits)
+    assert table.shape == (1 << bb, row_words)
     if absent:       # random words: present with negligible probability
         q = rng.integers(0, 1 << 62, size=(Q, W), dtype=np.uint64)
     else:
@@ -133,18 +136,9 @@ def _lookup_case(W, n, Q, seed, b_bits=None, absent=False, sentinel=False):
             torch.from_numpy(q.view(np.int64)))
 
 
-@pytest.mark.parametrize("W,n,Q,b_bits,absent,sentinel", [
-    (1, 5000, 4097, None, False, False), (2, 5000, 1000, None, False, False),
-    (1, 300, 0, None, False, False), (2, 300, 1, None, False, False),
-    (1, 2000, 333, None, True, False), (2, 2000, 77, None, False, True),
-    (1, 20000, 5000, 1, False, False), (2, 20000, 5000, 2, False, False),
-    (3, 4000, 999, None, False, False), (1, 200000, 300001, None, False,
-                                         False)])
-def test_lookup_kernel_matches_plain(cuda, W, n, Q, b_bits, absent,
-                                     sentinel):
-    table, bb, q = _lookup_case(W, n, Q, n + Q + W, b_bits, absent,
-                                sentinel)
+def _check_lookup_kernel(table, bb, q, W, cuda):
     table, q = table.to(cuda), q.to(cuda)
+    Q = q.shape[0]
     n0 = _build.LAUNCHES["lookup"]
     idx, found = lookup.lookup_fused(table, q, bb, W)
     assert _build.LAUNCHES["lookup"] == n0 + (1 if Q else 0)
@@ -152,10 +146,78 @@ def test_lookup_kernel_matches_plain(cuda, W, n, Q, b_bits, absent,
     torch.cuda.synchronize()
     assert idx.dtype == torch.int32 and found.dtype == torch.bool
     assert torch.equal(idx, want[0]) and torch.equal(found, want[1])
+    return found, lookup.rows_read(table, q, bb, W)
+
+
+# b_bits 1 and 2 are far too small: the 128-byte-row table grows only until
+# the keys fit, so nearly every row is full and chains run over many rows
+# and past the last row; the 128-lane table grows until no bucket overflows
+@pytest.mark.parametrize("row_words", [32, 128])
+@pytest.mark.parametrize("W,n,Q,b_bits,absent,sentinel", [
+    (1, 5000, 4097, None, False, False), (2, 5000, 1000, None, False, False),
+    (1, 300, 0, None, False, False), (2, 300, 1, None, False, False),
+    (1, 300, 1, None, False, False), (1, 3000, 3, None, False, False),
+    (2, 3000, 31, None, False, False), (3, 3000, 33, None, False, False),
+    (4, 3000, 255, None, False, False), (4, 3000, 1030, None, False, False),
+    (1, 2000, 333, None, True, False), (2, 2000, 77, None, False, True),
+    (1, 20000, 5000, 1, False, False), (2, 20000, 5000, 2, False, False),
+    (3, 9000, 2001, 1, False, False), (4, 9000, 2002, 1, True, False),
+    (3, 4000, 999, None, False, False), (1, 200000, 300001, None, False,
+                                         False)])
+def test_lookup_kernel_matches_plain(cuda, W, n, Q, b_bits, absent,
+                                     sentinel, row_words):
+    table, bb, q = _lookup_case(W, n, Q, n + Q + W, b_bits, absent,
+                                sentinel, row_words)
+    found, rows = _check_lookup_kernel(table, bb, q, W, cuda)
     if sentinel or absent:
         assert not bool(found.any())
     elif Q > 100:
         assert bool(found.any())
+    if b_bits is not None and row_words == 32 and not sentinel:
+        assert int(rows.max()) >= 3              # forced chains
+
+
+@pytest.mark.parametrize("W", [1, 2, 4])
+def test_lookup_kernel_on_a_table_without_an_empty_slot(cuda, W):
+    rng = np.random.default_rng(W)
+    S = lookup.slots_for(W, 32)
+    keys = np.unique(rng.integers(0, 1 << 62, size=(4 * S, W),
+                                  dtype=np.uint64), axis=0)
+    table, bb = lookup.build_table32(keys, b_bits=2)
+    assert bb == 2 and (table[:, :S] != 0xFFFFFFFF).all()
+    q = np.concatenate([keys, rng.integers(0, 1 << 62, size=(100, W),
+                                           dtype=np.uint64),
+                        np.full((3, W), np.uint64(2**64 - 1))])
+    found, rows = _check_lookup_kernel(
+        torch.from_numpy(table.view(np.int32)), bb,
+        torch.from_numpy(q.view(np.int64)), W, cuda)
+    assert int(found.sum()) == len(keys) and int(rows.max()) == 4
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+def test_lookup_kernel_walks_on_from_full_128_lane_rows(cuda, W):
+    """The reference-shaped table with full rows, the last among them: a
+    probe for an absent key walks on and wraps."""
+    rng = np.random.default_rng(10 + W)
+    pool = np.unique(rng.integers(0, 1 << 62, size=(8000, W),
+                                  dtype=np.uint64), axis=0)
+    S, bb = lookup.slots_for(W), 4
+    home = (hashidx._hash_np(pool) >> np.uint64(64 - bb)).astype(np.int64)
+    order = np.argsort(home, kind="stable")
+    rank = np.empty(len(pool), np.int64)
+    rank[order] = np.arange(len(pool)) - np.searchsorted(home[order],
+                                                         home[order])
+    keys = pool[(rank < S) & ((home % 3 == 0) | (rank < S // 2))]
+    table, got_b = lookup.build_table128(keys, b_bits=bb)
+    full = (table[:, :S] != 0xFFFFFFFF).all(axis=1)
+    assert got_b == bb and full[0] and full[15] and not full[1]
+    q = np.concatenate([keys, pool[::2],
+                        np.full((5, W), np.uint64(2**64 - 1))])
+    found, rows = _check_lookup_kernel(
+        torch.from_numpy(table.view(np.int32)), bb,
+        torch.from_numpy(q.view(np.int64)), W, cuda)
+    # from the last row over row 0, full too, into row 1
+    assert bool(found[:len(keys)].all()) and int(rows.max()) == 3
 
 
 def test_lookup_auto_takes_the_kernel_on_a_cuda_store(cuda, monkeypatch):
@@ -260,7 +322,27 @@ def test_block_sort_all_ascending_matches_plain(cuda, M, nk, np_, hi):
     assert torch.equal(got, bitonic.block_sort_plain(x, nk, True, T))
 
 
+@pytest.mark.parametrize("all_asc", [True, False])
+@pytest.mark.parametrize("sent_frac", [0.0, 1.0])
+@pytest.mark.parametrize("nk,np_", [(1, 2), (2, 3), (3, 4), (4, 5), (9, 10)])
+def test_block_sort_of_equal_keys_keeps_the_source_order(cuda, nk, np_,
+                                                         sent_frac, all_asc):
+    """All keys equal (one value, or all sentinels): an ascending tile
+    keeps its records in place, a descending tile reverses them."""
+    M = 4 * T if not all_asc else 3 * T + 5
+    x = _records(nk, M, np_, nk, 1, sent_frac).to(cuda)
+    got = bitonic.block_sort(x, nk, all_asc=all_asc)
+    assert torch.equal(got, bitonic.block_sort_plain(x, nk, all_asc, T))
+    want = x.clone()
+    if not all_asc:
+        rows = want.view(np_, -1, T)
+        rows[:, 1::2] = rows[:, 1::2].flip(2)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("ntiles,nk,np_,hi", [(1, 2, 3, 2**32), (2, 2, 3, 4),
+                                              (4, 3, 6, 2**32), (6, 3, 3, 2),
+                                              (2, 4, 4, 2**32),
                                               (5, 1, 2, 7), (8, 4, 5, 2),
                                               (3, 9, 12, 2)])
 def test_block_sort_alternating_matches_plain(cuda, ntiles, nk, np_, hi):
