@@ -16,7 +16,14 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    level) and the sorts and merges built from them (sort_planes,
    merge_planes, sort_planes_mp) run at an epoch's shape (k=31 and k=63)
    and an LSM merge's (2 x 4M records), to the tie contract of
-   ops/kernels/bitonic.py, beside torch.sort.  The lookup kernel runs at
+   ops/kernels/bitonic.py, beside torch.sort.  The merge level runs by
+   both of its kernels (a pair's tiles; whole groups staged in shared
+   memory), the fused levels against the plain levels and a stable sort
+   of every group; the tail at 1, 2 and 4 key planes, over spans of one
+   tile and of two, and on equal keys with distinct payloads; the kernel
+   launches of one epoch sort under mp and bitonic are counted, and both
+   sorts timed at every size of fused group and tail span.  The lookup
+   kernel runs at
    W=1 and W=2 against a store of the E. coli graph's size (9.2M keys),
    with present, absent and sentinel queries, at a walker's batch (4096)
    and a bulk batch (Q = N), on the 128-byte-row table the port uses
@@ -335,7 +342,7 @@ def phase_sorts(torch, results, shapes):
     from mccortex_tpu_torch.graph import build as gbuild
     from mccortex_tpu_torch.ops import kmer as kops
     from mccortex_tpu_torch.ops import sorted as sops
-    from mccortex_tpu_torch.ops.kernels import bitonic, mergepath
+    from mccortex_tpu_torch.ops.kernels import _build, bitonic, mergepath
 
     T = bitonic.TILE
     logT = T.bit_length() - 1
@@ -396,6 +403,7 @@ def phase_sorts(torch, results, shapes):
                       bitonic.cmpx_plain(alt, nk, T, 2 * T, False))
         err_t = exact(f"tail {tag}", bitonic.tail(bf, nk, 2 * T, False),
                       bitonic.tail_plain(bf, nk, 2 * T, False, T))
+        check_tails(torch, bitonic, exact, tag, alt, bf, nk)
         # in place: timed on a fresh copy each call, less the copy's time
         ms_b = time_ms(torch, lambda: bitonic.butterfly(alt.clone(), nk, T,
                                                         2 * T, False)) \
@@ -403,12 +411,15 @@ def phase_sorts(torch, results, shapes):
         plain_b = time_ms(torch, lambda: bitonic.cmpx_plain(alt, nk, T, 2 * T,
                                                             False), 5)
         ms_t = time_ms(torch, lambda: bitonic.tail(bf, nk, 2 * T, False))
+        ms_t2 = time_ms(torch, lambda: bitonic.tail(alt, nk, 2 * T, False,
+                                                    tile=2 * T))
         plain_t = time_ms(torch, lambda: bitonic.tail_plain(bf, nk, 2 * T,
                                                             False, T), 5)
         print(f"butterfly {tag} j={T}: exact; kernel {ms_b:.4f} ms, plain "
               f"{plain_b:.4f} ms")
         print(f"tail {tag} k={2 * T}: exact; kernel {ms_t:.4f} ms, plain "
-              f"{plain_t:.4f} ms")
+              f"{plain_t:.4f} ms; over spans of two tiles (the butterfly of "
+              f"distance {T} with it) {ms_t2:.4f} ms")
         if lib_ok:
             results["bitonic_butterfly"] = row(
                 err_b, ms_b, plain_b, 2 * nbytes_of(x), M // 2 * cmp_ops(nk))
@@ -416,22 +427,56 @@ def phase_sorts(torch, results, shapes):
                 err_t, ms_t, plain_t, 2 * nbytes_of(x),
                 M // 2 * logT * cmp_ops(nk))
 
-        # one merge level over the sorted tiles, and the last of the tree
+        # one merge level over the sorted tiles, by the kernel the port
+        # takes for it and by the other one
         err = exact(f"mergelevel {tag} R={T}", mergepath.merge_level(runs, nk, T),
                     mergepath.merge_level_plain(runs, nk, T))
         ms = time_ms(torch, lambda: mergepath.merge_level(runs, nk, T))
+        with fuse_records(mergepath, 0):
+            exact(f"mergelevel by tiles {tag} R={T}",
+                  mergepath.merge_level(runs, nk, T),
+                  mergepath.merge_level_plain(runs, nk, T))
+            ms_tiles = time_ms(torch,
+                               lambda: mergepath.merge_level(runs, nk, T))
         plain = time_ms(torch,
                         lambda: mergepath.merge_level_plain(runs, nk, T), 5)
         r64 = keys64(runs) if lib_ok else None
         lib = time_ms(torch, lambda: torch.sort(r64.view(-1, 2 * T), dim=1,
                                                 stable=True), 5) \
             if lib_ok else None
-        print(f"mergelevel {tag} R={T}: exact (stable); kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, torch.sort of the pairs' 64-bit keys "
+        staged = mergepath.fused_levels(np_, T, 1) == 1
+        print(f"mergelevel {tag} R={T}: exact (stable); kernel {ms:.4f} ms "
+              f"({'whole pairs staged' if staged else 'a pair in tiles'}), "
+              f"by a pair's tiles {ms_tiles:.4f} ms, plain {plain:.4f} ms, "
+              f"torch.sort of the pairs' 64-bit keys "
               f"{lib if lib is None else round(lib, 4)} ms")
         if lib_ok:
             results["mergelevel"] = row(err, ms, plain, 2 * nbytes_of(x),
                                         M * MERGE_OPS(nk), lib)
+
+        # the levels that fuse, against the plain levels and a stable sort
+        # of every group
+        levels = mergepath._tree_levels(M, T)
+        L = mergepath.fused_levels(np_, T, levels)
+        print(f"fused levels at np={np_}: {L} of the tree's {levels} in one "
+              f"launch (groups of {T << L} records, "
+              f"{mergepath._fused_bytes(np_, T << L)} bytes of shared memory "
+              f"a block)")
+        if L < 2:
+            fail(f"fused levels at np={np_}: fewer than 2 levels fuse")
+        _build.LAUNCHES.clear()
+        got = mergepath.merge_levels(runs, nk, T, L)
+        if _build.LAUNCHES["mergelevel"] != 1:
+            fail(f"fused levels {tag}: {L} levels took "
+                 f"{_build.LAUNCHES['mergelevel']} launches")
+        exact(f"fused levels {tag}", got,
+              mergepath.merge_levels_plain(runs, nk, T, L))
+        gid = (torch.arange(M, device=x.device) // (T << L)).to(torch.int32)
+        exact(f"fused levels {tag} against a stable sort of every group", got,
+              x[:, sops.argsort_planes(torch.cat([gid[None], x[:nk]]))])
+        ms_f = time_ms(torch, lambda: mergepath.merge_levels(runs, nk, T, L))
+        print(f"fused levels {tag}: {L} levels exact (plain levels, stable "
+              f"sort of every group) in one launch {ms_f:.4f} ms")
 
         # the whole sorts
         want = stable(x, nk)
@@ -440,10 +485,10 @@ def phase_sorts(torch, results, shapes):
               mergepath.sort_planes_mp_plain(x, nk), want)
         Mp = bitonic.padded_length(M)
         xp = bitonic.pad_planes(x, nk, Mp)
-        got = bitonic.sort_planes(xp, nk)
-        exact(f"sort_planes {tag}", got, bitonic.sort_planes_plain(xp, nk))
-        check_up_to_ties(torch, sops, f"sort_planes {tag}", got[:, :M], want,
-                         nk)
+        got_bt = bitonic.sort_planes(xp, nk)
+        exact(f"sort_planes {tag}", got_bt, bitonic.sort_planes_plain(xp, nk))
+        check_up_to_ties(torch, sops, f"sort_planes {tag}", got_bt[:, :M],
+                         want, nk)
         ms_mp = time_ms(torch, lambda: mergepath.sort_planes_mp(x, nk), 10)
         ms_bt = time_ms(torch, lambda: gbuild._sort_planes32(x, nk, "bitonic"),
                         10)
@@ -458,9 +503,65 @@ def phase_sorts(torch, results, shapes):
               f"+ gather) {ms_lax:.4f} ms; torch.sort of the 64-bit keys "
               f"alone {lib if lib is None else round(lib, 4)} ms; one read "
               f"and one write of the records {bound:.4f} ms")
+        # kernels launched by one epoch sort (every wrapper call launches
+        # one kernel), beside the design before: two kernels a level, a
+        # tail of one tile
+        stages = (Mp // T).bit_length() - 1
+        was = {"mp": 1 + 2 * levels,
+               "bitonic": 1 + stages + stages * (stages + 1) // 2}
+        wide = bitonic.tail_span(nk) > T     # one butterfly less a stage
+        if wide != (nk <= 2):
+            fail(f"sort {tag}: the tail spans {bitonic.tail_span(nk)}")
+        now = {}
+        for engine in ("mp", "bitonic"):
+            _build.LAUNCHES.clear()
+            gbuild._sort_planes32(x, nk, engine)
+            now[engine] = sum(_build.LAUNCHES.values())
+        trips = 1 + levels - L + 1
+        if now["mp"] != trips or trips >= 1 + levels:
+            fail(f"sort {tag}: sort_planes_mp launched {now['mp']} kernels, "
+                 f"not the tile sort, one fused launch and {levels - L} "
+                 f"levels")
+        if now["bitonic"] != was["bitonic"] - (stages if wide else 0):
+            fail(f"sort {tag}: bitonic sort_planes launched "
+                 f"{now['bitonic']} kernels")
+        print(f"kernel launches per epoch sort {tag}: mp {was['mp']} before "
+              f"-> {now['mp']} now (tile sort, {L} levels fused, "
+              f"{levels - L} levels); bitonic {was['bitonic']} before -> "
+              f"{now['bitonic']} now (tile sort, {stages} tails of "
+              f"{bitonic.tail_span(nk)} records, the butterflies)")
+        by_group, by_span = {}, {}
+        for cap in (0, 2 * T, 4 * T, 8 * T):
+            with fuse_records(mergepath, cap):
+                exact(f"sort_planes_mp {tag} with groups of up to {cap}",
+                      mergepath.sort_planes_mp(x, nk), want)
+                by_group[cap] = time_ms(
+                    torch, lambda: mergepath.sort_planes_mp(x, nk), 10)
+        for span in (T, 2 * T):
+            saved = bitonic.TAIL_WIDE_KEYS
+            bitonic.TAIL_WIDE_KEYS = 4 if span > T else 0
+            try:
+                exact(f"sort_planes {tag} with tails of {span}",
+                      bitonic.sort_planes(xp, nk), got_bt)
+                by_span[span] = time_ms(
+                    torch, lambda: bitonic.sort_planes(xp, nk), 10)
+            finally:
+                bitonic.TAIL_WIDE_KEYS = saved
+        print(f"sort {tag}: sort_planes_mp by the most records of a fused "
+              f"group (0 = every level by a pair's tiles) "
+              f"{json.dumps({k: round(v, 4) for k, v in by_group.items()})} "
+              f"ms; bitonic sort_planes by the tail's span "
+              f"{json.dumps({k: round(v, 4) for k, v in by_span.items()})} ms")
         sorts.append(dict(shape=tag, sort_planes_mp_ms=ms_mp,
                           bitonic_sort_planes_ms=ms_bt, lax_engine_ms=ms_lax,
-                          torch_sort_keys_ms=lib, bound_ms=bound))
+                          torch_sort_keys_ms=lib, bound_ms=bound,
+                          mergelevel_by_tiles_ms=ms_tiles,
+                          fused_levels=L, fused_levels_ms=ms_f,
+                          tail_two_tiles_ms=ms_t2,
+                          launches_mp=[was["mp"], now["mp"]],
+                          launches_bitonic=[was["bitonic"], now["bitonic"]],
+                          sort_planes_mp_by_group_ms=by_group,
+                          bitonic_sort_planes_by_span_ms=by_span))
 
     # an LSM merge: two sorted items of 4M records
     a, b = shapes["a"], shapes["b"]
@@ -493,6 +594,45 @@ def phase_sorts(torch, results, shapes):
                       bitonic_merge_planes_ms=ms_bt, tail_ms=ms_t,
                       butterfly_ms=ms_b, bound_ms=bound))
     return sorts
+
+
+@contextlib.contextmanager
+def fuse_records(mergepath, cap: int):
+    """The merge levels with groups of at most cap records fused (0: every
+    level by the kernel that merges a pair's tiles)."""
+    saved, mergepath.FUSE_RECORDS = mergepath.FUSE_RECORDS, cap
+    try:
+        yield
+    finally:
+        mergepath.FUSE_RECORDS = saved
+
+
+def check_tails(torch, bitonic, exact, tag, alt, bf, nk):
+    """The tail against tail_plain beyond the timed call: over spans of two
+    tiles, descending spans, the last stage, one key plane, and a tile of
+    equal keys with distinct payloads (no record may move)."""
+    T = bitonic.TILE
+    M = alt.shape[1]
+    for span, src in ((T, bf), (2 * T, alt)):
+        for k, final_asc in ((2 * T, False), (2 * T, True), (8 * T, False)):
+            exact(f"tail {tag} span={span} k={k} final_asc={final_asc}",
+                  bitonic.tail(src, nk, k, final_asc, tile=span),
+                  bitonic.tail_plain(src, nk, k, final_asc, span))
+        one = src[[0, src.shape[0] - 1]].contiguous()   # 1 key plane
+        exact(f"tail {tag} span={span} nk=1",
+              bitonic.tail(one, 1, 2 * T, False, tile=span),
+              bitonic.tail_plain(one, 1, 2 * T, False, span))
+        same = src.clone()
+        same[:nk] = 12345
+        same[nk] = torch.arange(M, device=src.device, dtype=torch.int32)
+        got = bitonic.tail(same, nk, 2 * T, False, tile=span)
+        exact(f"tail {tag} span={span} on equal keys", got,
+              bitonic.tail_plain(same, nk, 2 * T, False, span))
+        if not torch.equal(got, same):
+            fail(f"tail {tag} span={span}: equal keys moved a record")
+    print(f"tail {tag}: exact against tail_plain at nk={nk} and nk=1, spans "
+          f"of {T} and {2 * T}, ascending, descending and last stages, and "
+          f"on equal keys (no record moves)")
 
 
 def check_up_to_ties(torch, sops, label, got, want, nk):

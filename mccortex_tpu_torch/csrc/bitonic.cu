@@ -14,7 +14,8 @@
 // that fits in a block, is bound by the latency of those substeps.  The
 // sort as a whole is bound by its number of passes over
 // device memory: with a tile of T records a full sort of M takes one
-// block sort, log2(M/T) tails and log2(M/T)*(log2(M/T)+1)/2 butterflies.
+// block sort, log2(M/T) tails and log2(M/T)*(log2(M/T)+1)/2 butterflies
+// (one butterfly less a stage where the tail spans two tiles).
 //
 // Design: a tile is 2048 records; a block sorts or merges one tile and then
 // writes every plane coalesced by gathering the source records through the
@@ -42,9 +43,22 @@
 //     written in reverse.  More key planes (up to 9, reached by the mp
 //     lookup join) take the network in shared memory that the other two
 //     kernels here use: a dispatch on nk, not a fallback.
-//   * tail: the substeps of distance T/2..1 of one merge stage in one pass;
-//     the direction is one bit of the tile's offset, or ascending at the
-//     last stage.  Keys alone are compared: equal keys never swap.
+//   * tail: the substeps of distance S/2..1 of one merge stage in one pass
+//     over spans of S = 2048 or 4096 records; the direction is one bit of
+//     the span's offset, or ascending at the last stage.  Keys alone are
+//     compared: equal keys never swap, so an exchange between two threads is
+//     symmetric (each side keeps its own record on equal keys).  Up to 4 key
+//     planes: 256 threads keep S/256 records each in registers, as in the
+//     tile sort.  A thread first holds the records t, t + 256, ..., read
+//     coalesced, so the distances S/2..256 lie between its own registers;
+//     one transposition through shared memory gives it S/256 consecutive
+//     records, and the distances 128..S/256 go through __shfl_xor_sync, the
+//     rest through its registers again: no barrier inside the network but
+//     the transposition's.  The payload planes (up to 8; further planes are
+//     gathered from device memory) are meanwhile staged in shared memory by
+//     asynchronous copies and permuted there on the way out, so a record
+//     crosses device memory once each way.  More key planes keep the
+//     network in shared memory (spans of 2048).
 //   * butterfly: one compare-exchange at a distance >= T, in place; a
 //     thread owns one pair and swaps all np planes when the keys are out of
 //     order.
@@ -130,7 +144,7 @@ __global__ void bt_blocksort_shared(const int32_t* __restrict__ in,
                                     int32_t* __restrict__ out,
                                     long long ld_out, int M, int nk, int np,
                                     int all_asc) {
-  extern __shared__ uint32_t smem[];  // nk key planes, then the index
+  extern __shared__ __align__(16) uint32_t smem[];  // nk key planes, then the index
   uint32_t* sk = smem;
   int* sidx = (int*)(smem + nk * kTile);
   const long long base = (long long)blockIdx.x * kTile;
@@ -301,7 +315,7 @@ __global__ void __launch_bounds__(kSortThreads)
 __global__ void bt_tail(const int32_t* __restrict__ in, long long ld_in,
                         int32_t* __restrict__ out, long long ld_out, int nk,
                         int np, int k_log, int final_asc) {
-  extern __shared__ uint32_t smem[];  // nk key planes, then the index
+  extern __shared__ __align__(16) uint32_t smem[];  // nk key planes, then the index
   uint32_t* sk = smem;
   int* sidx = (int*)(smem + nk * kTile);
   const long long base = (long long)blockIdx.x * kTile;
@@ -309,6 +323,178 @@ __global__ void bt_tail(const int32_t* __restrict__ in, long long ld_in,
   const bool asc = final_asc || ((base >> k_log) & 1) == 0;
   stage<false>(sk, sidx, nk, kTile, asc);
   store_tile(in, ld_in, out, ld_out, base, kTile, np, sidx);
+}
+
+// ---- the tail in registers: nk <= 2 * NW key planes -----------------------
+
+constexpr int kTailThreads = 256;
+constexpr int kTailStage = 8;              // payload planes staged
+
+__device__ __forceinline__ void copy4_async(uint32_t* dst,
+                                            const uint32_t* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void copy16_async(uint4* dst, const uint4* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src));
+}
+
+// this thread's asynchronous copies have landed
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.commit_group;" ::);
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// a's key sorts strictly before b's (the index is no part of it)
+template <int NW>
+__device__ __forceinline__ bool key_less(const Rec<NW>& a, const Rec<NW>& b) {
+  bool lt = false;
+#pragma unroll
+  for (int w = NW - 1; w >= 0; --w) {
+    lt = a.k[w] < b.k[w] || (a.k[w] == b.k[w] && lt);
+  }
+  return lt;
+}
+
+// lo and hi swap when their keys are strictly out of order
+template <int NW>
+__device__ __forceinline__ void cmpx_keys(Rec<NW>& lo, Rec<NW>& hi, bool asc) {
+  if (asc ? key_less(hi, lo) : key_less(lo, hi)) {
+    const Rec<NW> t = lo;
+    lo = hi;
+    hi = t;
+  }
+}
+
+// compare-exchanges between a thread's own records r and r | j, for
+// j = REGS / 2 .. 1
+template <int NW, int REGS>
+__device__ __forceinline__ void own_substeps(Rec<NW> (&rec)[REGS], bool asc) {
+#pragma unroll
+  for (int j = REGS / 2; j >= 1; j >>= 1) {
+#pragma unroll
+    for (int r = 0; r < REGS; ++r) {
+      if ((r & j) == 0) cmpx_keys(rec[r], rec[r | j], asc);
+    }
+  }
+}
+
+template <int NW, int REGS>
+__global__ void __launch_bounds__(kTailThreads)
+    bt_tail_regs(const int32_t* __restrict__ in, long long ld_in,
+                 int32_t* __restrict__ out, long long ld_out, int nk, int np,
+                 int nstage, int k_log, int final_asc) {
+  constexpr int kSpan = kTailThreads * REGS;
+  // position p of the span at p + p / REGS: a thread's consecutive records
+  // and the threads' strided ones both spread over the banks
+  constexpr int kPadded = kSpan + kTailThreads;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint64_t* sk = (uint64_t*)smem;               // NW rows of kPadded
+  uint32_t* sidx = smem + 2 * NW * kPadded;     // kPadded
+  uint32_t* pay = sidx + kPadded;               // nstage rows of kSpan
+  const int t = threadIdx.x;
+  const long long base = (long long)blockIdx.x * kSpan;
+  const bool asc = final_asc || ((base >> k_log) & 1) == 0;
+
+  // the payload planes on their way into shared memory
+  const uint32_t* win = (const uint32_t*)in + base;
+  const bool vec = (ld_in & 3) == 0 && ((uintptr_t)win & 15) == 0;
+  for (int p = 0; p < nstage; ++p) {
+    uint32_t* dst = pay + p * kSpan;
+    const uint32_t* src = win + (nk + p) * ld_in;
+    if (vec) {
+      for (int i = t; i < kSpan / 4; i += kTailThreads) {
+        copy16_async((uint4*)dst + i, (const uint4*)src + i);
+      }
+    } else {
+      for (int i = t; i < kSpan; i += kTailThreads) {
+        copy4_async(dst + i, src + i);
+      }
+    }
+  }
+
+  // records t, t + 256, ...: the distances kSpan / 2 .. 256 are a thread's own
+  Rec<NW> rec[REGS];
+#pragma unroll
+  for (int r = 0; r < REGS; ++r) {
+    const int pos = t + r * kTailThreads;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {   // 2 NW - 2 < nk: plane 2w is a key
+      const uint32_t hi = win[(2 * w) * ld_in + pos];
+      const uint32_t lo = 2 * w + 1 < nk ? win[(2 * w + 1) * ld_in + pos] : 0u;
+      rec[r].k[w] = ((uint64_t)hi << 32) | lo;
+    }
+    rec[r].i = (uint32_t)pos;
+  }
+  own_substeps<NW, REGS>(rec, asc);
+
+  // transpose: records t * REGS .. t * REGS + REGS - 1
+#pragma unroll
+  for (int r = 0; r < REGS; ++r) {
+    const int pos = t + r * kTailThreads;
+    const int at = pos + pos / REGS;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) sk[w * kPadded + at] = rec[r].k[w];
+    sidx[at] = rec[r].i;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < REGS; ++r) {
+    const int at = t * REGS + r + t;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) rec[r].k[w] = sk[w * kPadded + at];
+    rec[r].i = sidx[at];
+  }
+
+  // distances 128 .. REGS: the partner is lane t ^ d of the warp
+#pragma unroll
+  for (int d = 128 / REGS; d >= 1; d >>= 1) {
+    const bool want_min = ((t & d) == 0) == asc;
+#pragma unroll
+    for (int r = 0; r < REGS; ++r) {
+      Rec<NW> o;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        o.k[w] = __shfl_xor_sync(kFullMask, rec[r].k[w], d);
+      }
+      o.i = __shfl_xor_sync(kFullMask, rec[r].i, d);
+      // strict on both sides: on equal keys each keeps its own
+      if (want_min ? key_less(o, rec[r]) : key_less(rec[r], o)) rec[r] = o;
+    }
+  }
+  own_substeps<NW, REGS>(rec, asc);
+
+  // back through shared memory, so that every plane leaves coalesced
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < REGS; ++r) {
+    const int at = t * REGS + r + t;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) sk[w * kPadded + at] = rec[r].k[w];
+    sidx[at] = rec[r].i;
+  }
+  copy_wait();
+  __syncthreads();
+  int32_t* o = out + base;
+#pragma unroll
+  for (int r = 0; r < REGS; ++r) {
+    const int pos = t + r * kTailThreads;
+    const int at = pos + pos / REGS;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const uint64_t x = sk[w * kPadded + at];
+      o[(2 * w) * ld_out + pos] = (int32_t)(uint32_t)(x >> 32);
+      if (2 * w + 1 < nk) o[(2 * w + 1) * ld_out + pos] = (int32_t)(uint32_t)x;
+    }
+    const uint32_t s = sidx[at];
+    for (int p = nk; p < np; ++p) {
+      const uint32_t v =
+          p - nk < nstage ? pay[(p - nk) * kSpan + s] : win[p * ld_in + s];
+      o[p * ld_out + pos] = (int32_t)v;
+    }
+  }
 }
 
 __global__ void bt_butterfly(int32_t* __restrict__ x, long long ld,
@@ -345,6 +531,21 @@ cudaError_t allow_shared(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+template <int NW, int REGS>
+cudaError_t launch_tail_regs(const int32_t* in, int ld_in, int32_t* out,
+                             int ld_out, int M, int nk, int np, int k_log,
+                             int final_asc, cudaStream_t st) {
+  constexpr int kSpan = kTailThreads * REGS;
+  const int nstage = min(np - nk, kTailStage);
+  const int bytes =
+      ((2 * NW + 1) * (kSpan + kTailThreads) + nstage * kSpan) * 4;
+  cudaError_t e = allow_shared(bt_tail_regs<NW, REGS>, bytes);
+  if (e != cudaSuccess) return e;
+  bt_tail_regs<NW, REGS><<<M / kSpan, kTailThreads, bytes, st>>>(
+      in, ld_in, out, ld_out, nk, np, nstage, k_log, final_asc);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // in, out: np planes of M at strides ld_in, ld_out (out != in).  Sorts
@@ -374,18 +575,39 @@ extern "C" int mctx_bitonic_blocksort(const void* in, void* out, int M,
   return (int)cudaGetLastError();
 }
 
-// The substeps of distance 1024..1 of merge stage 2**k_log over every tile
-// of in (M a multiple of 2048), written to out (out != in).
+// The substeps of distance span/2..1 of merge stage 2**k_log (at least
+// span) over every span of in (M a multiple of span), written to out
+// (out != in).  span is 2048 or, for up to 4 key planes, 4096.
 extern "C" int mctx_bitonic_tail(const void* in, void* out, int M, int nk,
                                  int np, int ld_in, int ld_out, int k_log,
-                                 int final_asc, void* stream) {
-  if (nk < 1 || nk > kMaxKeys) return (int)cudaErrorInvalidValue;
+                                 int final_asc, int span, void* stream) {
+  if (nk < 1 || nk > kMaxKeys || nk > np) return (int)cudaErrorInvalidValue;
+  if (span != kTile && !(span == 2 * kTile && nk <= 4)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (M % span || (1ll << k_log) < span) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int32_t* pi = (const int32_t*)in;
+  int32_t* po = (int32_t*)out;
+  if (nk <= 4) {
+    const bool wide = span == 2 * kTile;
+    if (nk <= 2) {
+      return (int)(wide ? launch_tail_regs<1, 16>(pi, ld_in, po, ld_out, M,
+                                                   nk, np, k_log, final_asc,
+                                                   st)
+                        : launch_tail_regs<1, 8>(pi, ld_in, po, ld_out, M, nk,
+                                                 np, k_log, final_asc, st));
+    }
+    return (int)(wide ? launch_tail_regs<2, 16>(pi, ld_in, po, ld_out, M, nk,
+                                                 np, k_log, final_asc, st)
+                      : launch_tail_regs<2, 8>(pi, ld_in, po, ld_out, M, nk,
+                                               np, k_log, final_asc, st));
+  }
   const int bytes = (nk + 1) * kTile * 4;
   cudaError_t e = allow_shared(bt_tail, bytes);
   if (e != cudaSuccess) return (int)e;
-  bt_tail<<<M / kTile, kThreads, bytes, (cudaStream_t)stream>>>(
-      (const int32_t*)in, ld_in, (int32_t*)out, ld_out, nk, np, k_log,
-      final_asc);
+  bt_tail<<<M / kTile, kThreads, bytes, st>>>(pi, ld_in, po, ld_out, nk, np,
+                                              k_log, final_asc);
   return (int)cudaGetLastError();
 }
 

@@ -17,14 +17,21 @@ on every plane.
 
 The plain versions follow the kernels' tiling (sort each tile, then the
 same compare-exchange network), and take a `tile` argument so that
-tests can use small tiles; the kernels' tile is fixed at TILE.
+tests can use small tiles; the kernels' tile is fixed at TILE.  The
+tail may span one tile or two (`span`; tail_span(num_keys) on the
+card): the substeps of a stage are the same compare-exchanges however
+they are grouped into tails and butterflies, so the output does not
+depend on it.
 
 The tile sort's order is total, so how a tile gets sorted is the
 kernel's own business: for up to 4 key planes it keeps 8 records a
 thread in registers and runs the network through registers and warp
 shuffles, with shared memory only for the 6 substeps that cross warps;
-above that (up to MAX_KEYS) it runs the network in shared memory, as
-the tail does.  Both give `block_sort_plain`'s output bit for bit.
+above that (up to MAX_KEYS) it runs the network in shared memory.  Both
+give `block_sort_plain`'s output bit for bit.  The tail does the same:
+registers and shuffles up to 4 key planes (keys alone are compared, so
+an exchange between two threads keeps each one's own record on equal
+keys), shared memory above, `tail_plain`'s output either way.
 """
 
 from __future__ import annotations
@@ -34,7 +41,9 @@ import torch
 from .. import sorted as sops
 from . import _build
 
-TILE = 2048              # records per block of the block sort and the tail
+TILE = 2048              # records per block of the block sort
+TAIL_WIDE_KEYS = 2       # up to this many key planes the card's tail spans
+                         # two tiles (at most 4: the tail in registers)
 MAX_KEYS = 9             # key planes the kernels stage in shared memory
 _FLIP = -0x80000000      # int32 sign bit: x ^ _FLIP orders as unsigned
 
@@ -53,7 +62,8 @@ def _is_pow2(n: int) -> bool:
     return n > 0 and n & (n - 1) == 0
 
 
-def _check(planes: torch.Tensor, num_keys: int, tile: int | None) -> int:
+def _check(planes: torch.Tensor, num_keys: int, tile: int | None,
+           on_card=(TILE,)) -> int:
     if planes.dim() != 2 or planes.dtype != torch.int32:
         raise ValueError("planes must be a (np, M) int32 tensor")
     if not 1 <= num_keys <= min(planes.shape[0], MAX_KEYS):
@@ -63,13 +73,22 @@ def _check(planes: torch.Tensor, num_keys: int, tile: int | None) -> int:
         raise ValueError("takes fewer than 2**31 records")
     tile = tile or TILE
     if planes.device.type == "cuda":
-        if tile != TILE:
-            raise ValueError(f"the kernels' tile is {TILE}, not {tile}")
+        if tile not in on_card:
+            raise ValueError(f"the kernel takes a tile of "
+                             f"{' or '.join(map(str, on_card))}, not {tile}")
     elif planes.device.type != "cpu":
         raise ValueError(f"unsupported device {planes.device}")
     if not _is_pow2(tile):
         raise ValueError(f"tile must be a power of two, got {tile}")
     return tile
+
+
+def tail_span(num_keys: int) -> int:
+    """Records a block of the tail takes on the card.  Two tiles where
+    that costs no more device time than a tail of one tile and the
+    butterfly of distance TILE it absorbs (measured: up to 2 key planes),
+    which takes one launch out of every merge stage; else one tile."""
+    return 2 * TILE if num_keys <= min(TAIL_WIDE_KEYS, 4) else TILE
 
 
 def _rows(planes: torch.Tensor) -> torch.Tensor:
@@ -172,8 +191,11 @@ def block_sort(planes: torch.Tensor, num_keys: int, all_asc: bool = False,
 def tail(planes: torch.Tensor, num_keys: int, k: int, final_asc: bool,
          tile: int | None = None) -> torch.Tensor:
     """All substeps of distance tile/2..1 of merge stage k (a power of
-    two >= tile) in one pass; M a multiple of the tile."""
-    tile = _check(planes, num_keys, tile)
+    two >= tile) in one pass; M a multiple of the tile.  Here the tile
+    is the tail's span: on the card TILE or, up to 4 key planes,
+    2 TILE."""
+    tile = _check(planes, num_keys, tile,
+                  on_card=(TILE, 2 * TILE) if num_keys <= 4 else (TILE,))
     np_, M = planes.shape
     if M % tile or not _is_pow2(k) or k < tile:
         raise ValueError(f"M = {M} and k = {k} must be multiples of the "
@@ -183,11 +205,11 @@ def tail(planes: torch.Tensor, num_keys: int, k: int, final_asc: bool,
     planes = _rows(planes)
     out = torch.empty((np_, M), dtype=torch.int32, device=planes.device)
     if M:
-        fn = _build.function("bitonic", "mctx_bitonic_tail", 2, 7)
+        fn = _build.function("bitonic", "mctx_bitonic_tail", 2, 8)
         with torch.cuda.device(planes.device):
             rc = fn(planes.data_ptr(), out.data_ptr(), M, num_keys, np_,
                     planes.stride(0), out.stride(0), k.bit_length() - 1,
-                    int(final_asc), _build.stream_of(planes))
+                    int(final_asc), tile, _build.stream_of(planes))
         _build.check(rc, "bitonic_tail")
     return out
 
@@ -215,51 +237,65 @@ def butterfly(planes: torch.Tensor, num_keys: int, j: int, k: int,
     return planes
 
 
-def _sort_network(planes, num_keys, tile, block_sort_fn, butterfly_fn,
+def _span(tile: int, span: int | None) -> int:
+    span = span or tile
+    if span not in (tile, 2 * tile):
+        raise ValueError(f"the tail spans one tile or two, not {span} "
+                         f"records at a tile of {tile}")
+    return span
+
+
+def _sort_network(planes, num_keys, tile, span, block_sort_fn, butterfly_fn,
                   tail_fn):
+    """Tile sort, then per merge stage k the butterflies of distance
+    k/2..span and one tail over spans of `span` (one tile or two)."""
     M = planes.shape[1]
     sp = block_sort_fn(planes, num_keys, False, tile)
     k = 2 * tile
     while k <= M:
         j = k // 2
-        while j >= tile:
+        while j >= span:
             sp = butterfly_fn(sp, num_keys, j, k, k >= M)
             j //= 2
-        sp = tail_fn(sp, num_keys, k, k >= M, tile)
+        sp = tail_fn(sp, num_keys, k, k >= M, span)
         k *= 2
     return sp
 
 
-def _merge_network(a, b, num_keys, tile, butterfly_fn, tail_fn):
+def _merge_network(a, b, num_keys, span, butterfly_fn, tail_fn):
     M = 2 * a.shape[1]
     sp = torch.cat([a, b.flip(1)], dim=1)
     j = M // 2
-    while j >= tile:
+    while j >= span:
         sp = butterfly_fn(sp, num_keys, j, M, True)
         j //= 2
-    return tail_fn(sp, num_keys, M, True, tile)
+    return tail_fn(sp, num_keys, M, True, span)
 
 
-def sort_planes_plain(planes: torch.Tensor, num_keys: int,
-                      tile: int = TILE) -> torch.Tensor:
+def sort_planes_plain(planes: torch.Tensor, num_keys: int, tile: int = TILE,
+                      span: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of sort_planes (any device): the same
-    network from the plain tile sort, compare-exchange and tail."""
-    return _sort_network(planes, num_keys, tile, block_sort_plain, cmpx_plain,
-                         tail_plain)
+    network from the plain tile sort, compare-exchange and tail (over
+    `span` records, the tile unless given)."""
+    return _sort_network(planes, num_keys, tile, _span(tile, span),
+                         block_sort_plain, cmpx_plain, tail_plain)
 
 
 def merge_planes_plain(a: torch.Tensor, b: torch.Tensor, num_keys: int,
-                       tile: int = TILE) -> torch.Tensor:
+                       tile: int = TILE,
+                       span: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of merge_planes (any device)."""
-    return _merge_network(a, b, num_keys, tile, cmpx_plain, tail_plain)
+    return _merge_network(a, b, num_keys, _span(tile, span), cmpx_plain,
+                          tail_plain)
 
 
 def sort_planes(planes: torch.Tensor, num_keys: int,
                 tile: int | None = None) -> torch.Tensor:
     """Sort (np, M) planes on the first num_keys planes with the bitonic
     network: a block sort, then per merge stage k = 2*tile .. M the
-    cross-tile butterflies and one tail.  M must be a power of two and at
-    least one tile, or at most one tile: pad with pad_planes to
+    cross-span butterflies and one tail (spans of tail_span(num_keys)
+    records on the card, of one tile on the CPU).  M must be a power of
+    two and at least one tile, or at most one tile: pad with pad_planes to
     padded_length(M); the sorted live records are the prefix as long as
     no live record with an all-ones key carries a non-zero payload.  Not
     stable (see the module's note on tie order)."""
@@ -269,7 +305,8 @@ def sort_planes(planes: torch.Tensor, num_keys: int,
         raise ValueError(f"M = {M} must be a power of two (pad_planes)")
     if planes.device.type == "cpu":
         return sort_planes_plain(planes, num_keys, tile)
-    return _sort_network(planes, num_keys, tile, block_sort, butterfly, tail)
+    return _sort_network(planes, num_keys, tile, tail_span(num_keys),
+                         block_sort, butterfly, tail)
 
 
 def merge_planes(a: torch.Tensor, b: torch.Tensor, num_keys: int,
@@ -288,4 +325,5 @@ def merge_planes(a: torch.Tensor, b: torch.Tensor, num_keys: int,
                          f"{tile} (pad_planes)")
     if a.device.type == "cpu":
         return merge_planes_plain(a, b, num_keys, tile)
-    return _merge_network(a, b, num_keys, tile, butterfly, tail)
+    return _merge_network(a, b, num_keys, tail_span(num_keys), butterfly,
+                          tail)

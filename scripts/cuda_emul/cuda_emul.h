@@ -10,6 +10,7 @@
 #include <algorithm>
 #include <barrier>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
 #include <thread>
@@ -25,7 +26,7 @@ using std::min;
 
 struct EmuDim { int x = 0, y = 0, z = 0; };
 inline thread_local EmuDim threadIdx, blockIdx, blockDim, gridDim;
-struct uint4 { uint32_t x, y, z, w; };
+struct alignas(16) uint4 { uint32_t x, y, z, w; };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
   return {a, b, c, d};
 }
@@ -40,7 +41,7 @@ namespace emu {
 inline std::barrier<>* block_barrier;
 inline std::vector<std::unique_ptr<std::barrier<>>> warp_barrier;
 inline uint64_t exchange[64][32];        // per warp, per lane
-inline uint32_t dynamic_shared[64 * 1024];
+alignas(16) inline uint32_t dynamic_shared[64 * 1024];
 inline int warp() { return threadIdx.x >> 5; }
 inline int lane() { return threadIdx.x & 31; }
 inline void warp_sync() { warp_barrier[warp()]->arrive_and_wait(); }
@@ -108,6 +109,14 @@ inline bool __any_sync(unsigned mask, bool pred) {
   return __ballot_sync(mask, pred) != 0;
 }
 
+// a 16-byte cp.async: the card faults on an address that is not a multiple
+// of 16, so the stand-in stops there too
+inline void emu_copy16(uint4* dst, const uint4* src) {
+  if ((((uintptr_t)dst) | ((uintptr_t)src)) & 15) abort();
+  std::memcpy((void*)dst, (const void*)src, 16);
+}
+
 template <class T>
 T __ldg(const T* p) { return *p; }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run CUDA kernels of mccortex_tpu_torch/csrc on the CPU, for their logic.
 
-    python scripts/cuda_emul/emulate.py [lookup] [bitonic]
+    python scripts/cuda_emul/emulate.py [lookup] [bitonic] [tail] [mergepath]
 
 A machine without nvcc or a GPU cannot compile or run a .cu.  This
 rewrites a source for g++ (the CUDA runtime header becomes cuda_emul.h,
@@ -10,8 +10,10 @@ rewrites a source for g++ (the CUDA runtime header becomes cuda_emul.h,
 shared library with the same C entry points, calls those on numpy arrays
 and holds the results against the plain PyTorch versions: the lookup
 kernel on both row widths with forced chains, the tile sort at 1 to 9
-key planes with ragged tiles and both direction rules.  It proves
-nothing about what nvcc accepts, nor about speed.
+key planes with ragged tiles and both direction rules, the tail on both
+spans with equal keys, the merge path and the merge levels (one a launch
+and fused) with ragged runs, heavy ties and windows at every alignment.
+It proves nothing about what nvcc accepts, nor about speed.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
 sys.path.insert(0, ROOT)
 
-from mccortex_tpu_torch.ops.kernels import bitonic, lookup  # noqa: E402
+from mccortex_tpu_torch.ops.kernels import (  # noqa: E402
+    bitonic, lookup, mergepath)
 
 CSRC = os.path.join(ROOT, "mccortex_tpu_torch", "csrc")
 
@@ -51,12 +54,14 @@ def _matching(src: str, start: int, open_ch: str, close_ch: str,
 
 def rewrite(src: str) -> str:
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emul.h"')
-    src = src.replace("extern __shared__ uint32_t smem[];",
-                      "uint32_t* smem = emu::dynamic_shared;")
+    src = re.sub(r"extern __shared__ (__align__\(16\) )?uint32_t smem\[\];",
+                 "uint32_t* smem = emu::dynamic_shared;", src)
     src = re.sub(r"const unsigned s = \(unsigned\)"
                  r"__cvta_generic_to_shared\(dst\);\n", "", src)
-    src = re.sub(r'asm volatile\("cp\.async\.cg[^;]*;"[^;]*;', "*dst = *src;",
-                 src)
+    src = re.sub(r'asm volatile\("cp\.async\.cg[^;]*;"[^;]*;',
+                 "emu_copy16(dst, src);", src)
+    src = re.sub(r'asm volatile\("cp\.async\.ca[^;]*;"[^;]*;',
+                 "*dst = *src;", src)
     src = re.sub(r'asm volatile\("cp\.async\.(commit|wait)[^;]*;"[^;]*;', "",
                  src)
     if "asm" in src:
@@ -81,10 +86,12 @@ def rewrite(src: str) -> str:
 def build(name: str, tmp: str, nptr: int, nint: int, symbol: str):
     cpp, so = os.path.join(tmp, f"{name}.cpp"), os.path.join(tmp,
                                                              f"lib{name}.so")
-    with open(os.path.join(CSRC, f"{name}.cu")) as fh, open(cpp, "w") as out:
-        out.write(rewrite(fh.read()))
-    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
-                    "-pthread", "-I", HERE, "-o", so, cpp], check=True)
+    if not os.path.exists(so):
+        with open(os.path.join(CSRC, f"{name}.cu")) as fh, \
+                open(cpp, "w") as out:
+            out.write(rewrite(fh.read()))
+        subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
+                        "-pthread", "-I", HERE, "-o", so, cpp], check=True)
     fn = getattr(ctypes.CDLL(so), symbol)
     fn.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * nint
                    + [ctypes.c_void_p])
@@ -155,13 +162,120 @@ def check_bitonic(tmp: str) -> None:
             sys.exit(1)
 
 
+def _records(rng, M, nk, np_, hi, ld=None, sent=0.1):
+    """(np_, ld) int32 records of which the first M columns are live: nk
+    key planes below hi with a share of all-ones keys, random payload."""
+    ld = ld or M
+    keys = rng.integers(0, hi, size=(nk, ld), dtype=np.uint64).astype(
+        np.uint32)
+    keys[:, rng.random(ld) < sent] = 0xFFFFFFFF
+    vals = rng.integers(0, 2**32, size=(np_ - nk, ld), dtype=np.uint64
+                        ).astype(np.uint32)
+    return np.ascontiguousarray(np.concatenate([keys, vals]).view(np.int32))
+
+
+def _sort_runs(x, M, nk, R):
+    for s in range(0, M, R):
+        run = torch.from_numpy(x[:, s:min(s + R, M)])
+        order = mergepath.sops.argsort_planes(run[:nk]).numpy()
+        x[:, s:min(s + R, M)] = run.numpy()[:, order]
+
+
+def check_tail(tmp: str) -> None:
+    fn = build("bitonic", tmp, 2, 8, "mctx_bitonic_tail")
+    T = bitonic.TILE
+    for span, nspans, nk, np_, hi, k, final_asc, ld in [
+            (T, 4, 2, 3, 2**32, 2 * T, 0, None), (T, 2, 1, 1, 5, 4 * T, 1, None),
+            (T, 1, 2, 3, 1, 2 * T, 0, None), (T, 4, 4, 5, 2, 2 * T, 0, None),
+            (T, 1, 3, 14, 2**32, T, 1, T + 3), (2 * T, 2, 2, 3, 3, 2 * T, 0, None),
+            (2 * T, 1, 4, 6, 2**32, 4 * T, 1, 2 * T + 1),
+            (2 * T, 1, 1, 2, 1, 2 * T, 0, None), (T, 4, 5, 6, 2, 2 * T, 0, None),
+            (2 * T, 2, 3, 4, 2, 2 * T, 0, None),
+            (T, 1, 9, 10, 2, 2 * T, 1, None)]:
+        M = span * nspans
+        rng = np.random.default_rng(M + nk + np_)
+        x = _records(rng, M, nk, np_, hi, ld, sent=0.0 if hi == 1 else 0.1)
+        ld = x.shape[1]
+        out = np.full_like(x, 12345)
+        rc = fn(x.ctypes.data, out.ctypes.data, M, nk, np_, ld, ld,
+                k.bit_length() - 1, final_asc, span, None)
+        want = bitonic.tail_plain(torch.from_numpy(x[:, :M].copy()), nk, k,
+                                  bool(final_asc), span).numpy()
+        ok = rc == 0 and np.array_equal(out[:, :M], want)
+        print(f"tail span={span} M={M} nk={nk} np={np_} keys below {hi} k={k} "
+              f"final_asc={final_asc} ld={ld}: "
+              f"{'exact' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            sys.exit(1)
+
+
+def check_mergepath(tmp: str) -> None:
+    level = build("mergepath", tmp, 2, 8, "mctx_mergelevel")
+    for M, R, nk, np_, hi, levels, fused, ld in [
+            (3000, 1000, 2, 3, 2**32, 1, 0, None),   # ld % 4 == 0, any window
+            (3001, 1024, 2, 3, 4, 1, 0, None),       # ld % 4 != 0
+            (3001, 1024, 2, 3, 4, 1, 0, 3004),
+            (2500, 2048, 1, 1, 3, 1, 0, None), (700, 300, 3, 4, 2, 1, 0, None),
+            (5000, 777, 4, 5, 2, 1, 0, 5000), (40, 1, 2, 3, 2, 1, 0, None),
+            (1500, 1 << 20, 2, 3, 5, 1, 0, None), (2100, 512, 5, 6, 2, 1, 0, 2100),
+            (2100, 700, 9, 18, 2, 1, 0, 2100), (1030, 515, 2, 20, 9, 1, 0, 1032),
+            (2048, 1024, 2, 3, 1, 1, 0, None),
+            (4096, 1024, 2, 3, 2**32, 2, 1, None), (9000, 512, 2, 3, 3, 3, 1, None),
+            (5001, 1, 1, 2, 4, 12, 1, None), (4097, 777, 4, 5, 2, 2, 1, 4100),
+            (3000, 100, 3, 3, 2, 1, 1, None), (20000, 2048, 2, 3, 7, 3, 1, None),
+            (3000, 256, 9, 10, 2, 4, 1, None), (100, 64, 2, 3, 2, 5, 1, None)]:
+        rng = np.random.default_rng(M + R + nk)
+        x = _records(rng, M, nk, np_, hi, ld, sent=0.0 if hi == 1 else 0.1)
+        ld = x.shape[1]
+        _sort_runs(x, M, nk, R)
+        out = np.full_like(x, 12345)
+        rc = level(x.ctypes.data, out.ctypes.data, M, min(R, M), nk, np_, ld,
+                   ld, levels, fused, None)
+        want = mergepath.merge_levels_plain(
+            torch.from_numpy(x[:, :M].copy()), nk, R, levels).numpy()
+        ok = rc == 0 and np.array_equal(out[:, :M], want)
+        print(f"mergelevel M={M} R={R} nk={nk} np={np_} keys below {hi} "
+              f"levels={levels} fused={fused} ld={ld}: "
+              f"{'exact' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            sys.exit(1)
+    merge = build("mergepath", tmp, 4, 6, "mctx_mergepath")
+    for Ma, Mb, nk, np_, hi, pad in [
+            (3000, 2500, 2, 4, 2**32, 0), (1500, 10, 1, 3, 50, 2),
+            (0, 1500, 2, 2, 2**32, 1), (1024, 1024, 4, 6, 3, 0),
+            (700, 2001, 5, 7, 2, 3), (1200, 900, 2, 19, 5, 0)]:
+        rng = np.random.default_rng(Ma + Mb + nk)
+        a = _records(rng, Ma, nk, np_, hi, Ma + pad)
+        b = _records(rng, Mb, nk, np_, hi, Mb + pad)
+        _sort_runs(a, Ma, nk, max(Ma, 1))
+        _sort_runs(b, Mb, nk, max(Mb, 1))
+        out = np.full((np_, Ma + Mb), 12345, np.int32)
+        split = np.zeros(-(-(Ma + Mb) // mergepath.TILE) + 1, np.int32)
+        rc = merge(a.ctypes.data, b.ctypes.data, out.ctypes.data,
+                   split.ctypes.data, Ma, Mb, nk, np_, a.shape[1], b.shape[1],
+                   None)
+        want = mergepath.merge_plain(torch.from_numpy(a[:, :Ma].copy()),
+                                     torch.from_numpy(b[:, :Mb].copy()),
+                                     nk).numpy()
+        ok = rc == 0 and np.array_equal(out, want)
+        print(f"mergepath Ma={Ma} Mb={Mb} nk={nk} np={np_} keys below {hi} "
+              f"strides {a.shape[1]}, {b.shape[1]}: "
+              f"{'exact' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            sys.exit(1)
+
+
 def main() -> None:
-    which = sys.argv[1:] or ["lookup", "bitonic"]
+    which = sys.argv[1:] or ["lookup", "bitonic", "tail", "mergepath"]
     with tempfile.TemporaryDirectory() as tmp:
         if "lookup" in which:
             check_lookup(tmp)
         if "bitonic" in which:
             check_bitonic(tmp)
+        if "tail" in which:
+            check_tail(tmp)
+        if "mergepath" in which:
+            check_mergepath(tmp)
     print("ok")
 
 

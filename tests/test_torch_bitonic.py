@@ -153,6 +153,52 @@ def test_tail_and_butterfly_follow_the_network():
     _same_up_to_ties(got[:, :31:-1], _stable(x[:, 32:], 2), 2)
 
 
+@pytest.mark.parametrize("nb,np_,nk,tile", [
+    (1, 3, 2, 256), (2, 3, 2, 512), (4, 2, 1, 64), (4, 5, 4, 512),
+    (1, 2, 1, 512)])
+def test_sort_planes_with_a_tail_of_two_tiles_matches_jax(nb, np_, nk, tile):
+    """The tail over spans of two tiles takes one butterfly out of every
+    stage: the same compare-exchanges, so the same bytes."""
+    rng = np.random.default_rng(200 * nb + np_)
+    planes = _planes(rng, nb * BLK_TEST, np_, nk, dup=nb == 4,
+                     sent_frac=0.1 * (nb == 2))
+    got = tbt.sort_planes_plain(_t(planes), nk, tile, span=2 * tile)
+    assert torch.equal(got, tbt.sort_planes_plain(_t(planes), nk, tile))
+    assert torch.equal(got, tbt.sort_planes(_t(planes), nk, tile=tile))
+    _same_up_to_ties(_u(got), _jax_sort(planes, nk), nk)
+
+
+@pytest.mark.parametrize("nb_half,np_,nk,tile", [
+    (1, 3, 2, 1024), (2, 3, 2, 128), (2, 6, 4, 2048)])
+def test_merge_planes_with_a_tail_of_two_tiles_matches_jax(nb_half, np_, nk,
+                                                           tile):
+    rng = np.random.default_rng(60 + nb_half)
+    Mh = nb_half * BLK_TEST
+    a = _stable(_planes(rng, Mh, np_, nk, dup=True, sent_frac=0.1), nk)
+    b = _stable(_planes(rng, Mh, np_, nk, dup=True, sent_frac=0.2), nk)
+    want = np.stack([np.asarray(x) for x in jbt.merge_planes(
+        tuple(jnp.asarray(p) for p in a), tuple(jnp.asarray(p) for p in b),
+        num_keys=nk, r_blk=R_TEST, interpret=True)])
+    got = tbt.merge_planes_plain(_t(a), _t(b), nk, tile, span=2 * tile)
+    assert torch.equal(got, tbt.merge_planes_plain(_t(a), _t(b), nk, tile))
+    _same_up_to_ties(_u(got), want, nk)
+
+
+@pytest.mark.parametrize("k,final_asc,nk", [(32, False, 2), (64, False, 1),
+                                            (128, True, 3), (32, True, 2)])
+def test_tail_of_two_tiles_is_a_butterfly_and_a_tail(k, final_asc, nk):
+    rng = np.random.default_rng(k + nk)
+    tile, M = 16, 128
+    x = _t(_planes(rng, M, nk + 1, nk, dup=True, sent_frac=0.1))
+    got = tbt.tail(x, nk, k, final_asc, tile=2 * tile)
+    want = tbt.tail(tbt.butterfly(x, nk, tile, k, final_asc), nk, k,
+                    final_asc, tile=tile)
+    assert torch.equal(got, want)
+    same = x.clone()
+    same[:nk] = 7                                 # equal keys never swap
+    assert torch.equal(tbt.tail(same, nk, k, final_asc, tile=2 * tile), same)
+
+
 def test_rejects_bad_arguments():
     x = torch.zeros((3, 48), dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -169,6 +215,10 @@ def test_rejects_bad_arguments():
         tbt.merge_planes(x[:, :8], x[:, :8], 2, tile=16)
     with pytest.raises(ValueError):
         tbt.tail(x, 2, 24, True, tile=16)
+    with pytest.raises(ValueError):
+        tbt.sort_planes_plain(x[:, :32], 2, 16, span=64)
+    with pytest.raises(ValueError):
+        tbt.tail(x[:, :32], 2, 16, True, tile=32)  # the stage is below the span
     many = torch.zeros((12, 16), dtype=torch.int32)
     with pytest.raises(ValueError):
         tbt.sort_planes(many, 10, tile=16)        # MAX_KEYS is 9

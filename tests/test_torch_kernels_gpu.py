@@ -351,17 +351,28 @@ def test_block_sort_alternating_matches_plain(cuda, ntiles, nk, np_, hi):
     assert torch.equal(got, bitonic.block_sort_plain(x, nk, False, T))
 
 
+@pytest.mark.parametrize("span", [T, 2 * T])
 @pytest.mark.parametrize("ntiles,k,final_asc,nk,np_,hi", [
     (4, 2 * T, False, 2, 3, 2**32), (4, 4 * T, True, 2, 4, 5),
     (8, 4 * T, False, 1, 2, 3), (2, 2 * T, True, 4, 5, 2),
-    (16, 8 * T, False, 8, 9, 2)])
+    (8, 2 * T, False, 4, 5, 2**32), (8, 2 * T, False, 3, 4, 3),
+    (4, 2 * T, False, 1, 1, 2**32), (4, 2 * T, True, 2, 14, 2),
+    (16, 8 * T, False, 8, 9, 2), (4, 2 * T, False, 5, 6, 2),
+    (4, 2 * T, True, 9, 10, 3)])
 def test_tail_and_butterfly_match_plain(cuda, ntiles, k, final_asc, nk, np_,
-                                        hi):
+                                        hi, span):
+    """The tail in registers (up to 4 key planes) and in shared memory
+    (above), over spans of one tile and of two, ascending and descending
+    spans, against the plain network."""
     x = _records(k + ntiles, ntiles * T, np_, nk, hi).to(cuda)
+    if nk > 4 and span > T:         # the tail in shared memory spans a tile
+        with pytest.raises(ValueError):
+            bitonic.tail(x, nk, k, final_asc, tile=span)
+        return
     n0 = _build.LAUNCHES["bitonic_tail"]
-    got = bitonic.tail(x, nk, k, final_asc)
+    got = bitonic.tail(x, nk, k, final_asc, tile=span)
     assert _build.LAUNCHES["bitonic_tail"] == n0 + 1
-    assert torch.equal(got, bitonic.tail_plain(x, nk, k, final_asc, T))
+    assert torch.equal(got, bitonic.tail_plain(x, nk, k, final_asc, span))
     j = k // 2
     while j >= T:
         want = bitonic.cmpx_plain(x, nk, j, k, final_asc)
@@ -370,6 +381,40 @@ def test_tail_and_butterfly_match_plain(cuda, ntiles, k, final_asc, nk, np_,
         assert _build.LAUNCHES["bitonic_butterfly"] == n0 + 1
         assert torch.equal(got, want)
         j //= 2
+
+
+@pytest.mark.parametrize("span", [T, 2 * T])
+@pytest.mark.parametrize("final_asc", [False, True])
+@pytest.mark.parametrize("sent_frac", [0.0, 1.0])
+@pytest.mark.parametrize("nk,np_", [(1, 2), (2, 3), (3, 4), (4, 5), (5, 6),
+                                    (9, 10)])
+def test_tail_of_equal_keys_moves_nothing(cuda, nk, np_, sent_frac,
+                                          final_asc, span):
+    """All keys equal (one value, or all sentinels) and distinct payloads:
+    no compare-exchange swaps, in either direction, so every record stays
+    where it is and none is dropped or doubled."""
+    M = 8 * T
+    x = _records(nk, M, np_, nk, 1, sent_frac)
+    x[nk] = torch.arange(M, dtype=torch.int32)
+    x = x.to(cuda)
+    span = span if nk <= 4 else T
+    got = bitonic.tail(x, nk, 2 * T, final_asc, tile=span)
+    assert torch.equal(got, x)
+
+
+@pytest.mark.parametrize("span", [T, 2 * T])
+def test_sort_planes_is_the_same_at_either_tail_span(cuda, monkeypatch, span):
+    monkeypatch.setattr(bitonic, "TAIL_WIDE_KEYS", 4 if span > T else 0)
+    assert bitonic.tail_span(2) == span
+    x = bitonic.pad_planes(_records(span, 100_000, 4, 2, 50), 2,
+                           bitonic.padded_length(100_000)).to(cuda)
+    _build.LAUNCHES.clear()
+    got = bitonic.sort_planes(x, 2)
+    stages = (x.shape[1] // T).bit_length() - 1
+    assert _build.LAUNCHES["bitonic_tail"] == stages
+    assert _build.LAUNCHES["bitonic_butterfly"] == \
+        sum(range(1, stages + 1)) - (stages if span > T else 0)
+    assert torch.equal(got.cpu(), bitonic.sort_planes_plain(x.cpu(), 2))
 
 
 @pytest.mark.parametrize("M,nk,np_,hi", [(1, 1, 1, 3), (T - 1, 2, 3, 2**32),
@@ -392,12 +437,19 @@ def test_sort_and_merge_planes_match_plain(cuda, M, nk, np_, hi):
     _same_up_to_ties(got[:, :M], _stable(x, nk), nk)
 
 
+@pytest.mark.parametrize("fuse", [0, mergepath.FUSE_RECORDS])
 @pytest.mark.parametrize("M,R,nk,np_,hi", [
     (1, 1, 1, 1, 2), (T - 1, 100, 2, 3, 2**32), (T + 1, T, 2, 3, 3),
     (3 * T + 17, T, 2, 4, 5), (3 * T + 17, 2 * T, 4, 5, 2),
     (50_000, 777, 1, 2, 9), (50_000, 5000, 8, 8, 2), (9000, 1 << 20, 9, 12, 2),
-    (70_001, 8 * T, 3, 6, 2**32)])
-def test_merge_level_kernel_matches_plain(cuda, M, R, nk, np_, hi):
+    (70_001, 8 * T, 3, 6, 2**32), (40_000, T, 2, 3, 1), (30_000, T, 5, 20, 2),
+    (245_760, T, 2, 3, 2**32), (5000, 1, 2, 3, 4)])
+def test_merge_level_kernel_matches_plain(cuda, monkeypatch, M, R, nk, np_, hi,
+                                          fuse):
+    """One level, by the kernel that merges a pair's tiles (fuse = 0) and,
+    where a pair fits in a block's shared memory, by the one that stages
+    whole groups: one launch either way."""
+    monkeypatch.setattr(mergepath, "FUSE_RECORDS", fuse)
     x = _records(M + R, M, np_, nk, hi)
     for s in range(0, M, R):                      # runs of R, each sorted
         x[:, s:s + R] = _stable(x[:, s:s + R], nk)
@@ -408,6 +460,58 @@ def test_merge_level_kernel_matches_plain(cuda, M, R, nk, np_, hi):
     for s in range(0, M, 2 * R):                  # stable merge of each pair
         assert torch.equal(got[:, s:s + 2 * R].cpu(),
                            _stable(x[:, s:s + 2 * R], nk))
+
+
+def _launches_of_levels(np_, M, R, levels):
+    """Kernel launches merge_levels makes: fused groups of levels while
+    they fit, then one a level, until one run is left."""
+    n, R = 0, min(R, M)
+    while True:
+        step = max(mergepath.fused_levels(np_, R, levels), 1)
+        n, levels, R = n + 1, levels - step, R << step
+        if levels == 0 or R >= M:
+            return n
+
+
+@pytest.mark.parametrize("M,R,levels,nk,np_,hi", [
+    (T - 1, 100, 3, 2, 3, 2**32), (3 * T + 17, T, 2, 2, 4, 5),
+    (245_760, T, 3, 2, 3, 2**32), (245_760, T, 7, 2, 3, 7),
+    (180_224, T, 7, 4, 5, 2**32), (180_224, T, 2, 4, 5, 2),
+    (50_000, 777, 6, 1, 2, 9), (50_000, 1, 16, 1, 1, 2**32),
+    (33_000, 500, 4, 5, 6, 2), (33_000, 64, 9, 9, 10, 2),
+    (70_001, T, 4, 3, 6, 2**32), (16 * T + 5, T, 3, 2, 3, 1),
+    (9 * T, T, 3, 2, 3, 3), (40_000, 3 * T // 2, 3, 2, 3, 2**32),
+    (100_000, 4 * T, 5, 2, 3, 11)])
+def test_merge_levels_kernel_matches_plain(cuda, M, R, levels, nk, np_, hi):
+    """Several levels a call (the first ones fused while their groups fit
+    in shared memory) against the plain levels and a stable sort of every
+    group: M below a tile, ragged last runs and groups, a last run
+    without partner, R = 1, R no multiple of the tile, heavy ties with
+    distinct payloads."""
+    x = _records(M + R + levels, M, np_, nk, hi)
+    for s in range(0, M, R):
+        x[:, s:s + R] = _stable(x[:, s:s + R], nk)
+    n0 = _build.LAUNCHES["mergelevel"]
+    got = mergepath.merge_levels(x.to(cuda), nk, R, levels).cpu()
+    assert _build.LAUNCHES["mergelevel"] - n0 == \
+        _launches_of_levels(np_, M, R, levels)
+    assert torch.equal(got, mergepath.merge_levels_plain(x, nk, R, levels))
+    G = R << levels
+    for s in range(0, M, G):
+        assert torch.equal(got[:, s:s + G], _stable(x[:, s:s + G], nk))
+
+
+def test_an_epoch_sort_makes_fewer_trips_than_its_levels(cuda):
+    """An epoch's sort_planes_mp: the tile sort, one launch for the first
+    levels (those whose groups fit, fused_levels) and one for each of
+    the others."""
+    x = _records(5, 245_760, 3, 2, 2**32).to(cuda)
+    _build.LAUNCHES.clear()
+    got = mergepath.sort_planes_mp(x, 2)
+    assert _build.LAUNCHES["bitonic_blocksort"] == 1
+    assert _build.LAUNCHES["mergelevel"] == _launches_of_levels(
+        3, 245_760, T, 7) < 7
+    assert torch.equal(got, _stable(x, 2))
 
 
 @pytest.mark.parametrize("M", ODD_SIZES + [250_000])

@@ -122,6 +122,72 @@ def test_sort_planes_mp_matches_jax(case):
     np.testing.assert_array_equal(got, _stable(planes, nk))
 
 
+@pytest.mark.parametrize("M,R,levels,np_,nk", [
+    (64, 16, 2, 3, 2), (100, 8, 3, 4, 2), (33, 1, 6, 2, 1), (7, 16, 2, 3, 3),
+    (1000, 8, 4, 6, 4), (48, 16, 1, 3, 2), (500, 7, 3, 10, 9),
+    (130, 16, 5, 3, 2)])
+def test_merge_levels_are_the_levels_one_after_another(M, R, levels, np_, nk):
+    rng = np.random.default_rng(M * R + levels)
+    planes = _planes(rng, M, np_, nk, dup=True, sent_frac=0.1)
+    for s in range(0, M, R):
+        planes[:, s:s + R] = _stable(planes[:, s:s + R], nk)
+    got = tmp.merge_levels(_t(planes), nk, R, levels)
+    step, run = _t(planes), R
+    for _ in range(levels):
+        step, run = tmp.merge_level(step, nk, run), 2 * run
+    assert torch.equal(got, step)
+    assert torch.equal(got, tmp.merge_levels_plain(_t(planes), nk, R, levels))
+    want = planes.copy()
+    for s in range(0, M, run):                   # stable sort of every group
+        want[:, s:s + run] = _stable(planes[:, s:s + run], nk)
+    np.testing.assert_array_equal(_u(got), want)
+
+
+@pytest.mark.parametrize("case", ["random", "all_equal", "heavy_dup",
+                                  "sentinel_padded"])
+def test_merge_levels_over_sorted_blocks_match_jax(case):
+    """The JAX sort is a block sort of BLK_TEST records and two levels:
+    the port's tile sort at that tile, then both levels in one call."""
+    rng = np.random.default_rng(10 + len(case))
+    np_, nk = 3, 2
+    M = 4 * BLK_TEST
+    planes = _planes(rng, M, np_, nk, dup=case == "heavy_dup")
+    if case == "all_equal":
+        planes[:nk] = 0x1234ABCD
+    if case == "sentinel_padded":
+        planes[:nk, M - 1300:] = 0xFFFFFFFF
+        planes[nk:, M - 1300:] = 0
+    want = _np(jmp.sort_planes_mp(_jnp(planes), num_keys=nk, interpret=True))
+    runs = tmp.bitonic.block_sort(_t(planes), nk, all_asc=True, tile=BLK_TEST)
+    got = _u(tmp.merge_levels(runs, nk, BLK_TEST, 2))
+    np.testing.assert_array_equal(got[:nk], want[:nk])
+    np.testing.assert_array_equal(_by_record(got), _by_record(want))
+    np.testing.assert_array_equal(got, _stable(planes, nk))
+
+
+@pytest.mark.parametrize("np_,R,levels,want", [
+    (3, 2048, 7, 2), (5, 2048, 7, 2), (12, 2048, 7, 1), (3, 2048, 1, 1),
+    (60, 2048, 3, 0), (3, 1, 20, 13), (3, 4096, 4, 1), (3, 4097, 4, 0),
+    (2, 777, 9, 3), (40, 1000, 5, 0)])
+def test_fused_levels_follow_the_shared_memory_a_group_needs(np_, R, levels,
+                                                             want):
+    got = tmp.fused_levels(np_, R, levels)
+    assert got == want
+    if got:
+        assert tmp._fused_bytes(np_, R << got) <= tmp.SHARED_MAX
+        assert R << got <= tmp.FUSE_RECORDS
+    if got < levels:
+        assert (tmp._fused_bytes(np_, R << (got + 1)) > tmp.SHARED_MAX
+                or R << (got + 1) > tmp.FUSE_RECORDS)
+
+
+@pytest.mark.parametrize("M,R,want", [(0, 16, 0), (1, 16, 0), (16, 16, 0),
+                                      (17, 16, 1), (33, 16, 2),
+                                      (245_760, 2048, 7), (180_224, 2048, 7)])
+def test_tree_levels(M, R, want):
+    assert tmp._tree_levels(M, R) == want
+
+
 def test_merge_level_rejects_bad_arguments():
     x = torch.zeros((3, 10), dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -131,6 +197,9 @@ def test_merge_level_rejects_bad_arguments():
     with pytest.raises(ValueError):
         tmp.merge_level(x.to(torch.int64), 2, 4)
     assert tmp.merge_level(x[:, :0], 2, 4).shape == (3, 0)
+    with pytest.raises(ValueError):
+        tmp.merge_levels(x, 2, 4, 0)
+    assert torch.equal(tmp.merge_levels(x, 2, 4, 9), x)
 
 
 # ---------------------------------------------------------------------------
