@@ -12,7 +12,15 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    shapes the main path gives it, exact (integer outputs: tolerance 0),
    with CUDA-event times of both, the least time the card could take
    (bound) and, where one PyTorch call computes the same function, that
-   call's time.  The sort kernels (tile sort, tail, butterfly, merge
+   call's time.  The front-end runs on a batch of 2048 reads of 150 bp
+   at k=31 and k=63, both writing every window and writing an epoch's
+   (the first L-k+1 windows of every row, the build's call); segreduce
+   at an epoch's shape (those sorted records, the count kept) and at the
+   build's merge shape (8,388,608 records, the count dropped, a run of
+   100,000 equal keys over many tiles, a sentinel tail), both as one
+   tensor of planes and as the reference's tuple; then the device
+   operations of one lax build epoch under torch.profiler.  The sort
+   kernels (tile sort, tail, butterfly, merge
    level) and the sorts and merges built from them (sort_planes,
    merge_planes, sort_planes_mp) run at an epoch's shape (k=31 and k=63)
    and an LSM merge's (2 x 4M records), to the tie contract of
@@ -38,7 +46,10 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    on 20x of 150 bp reads of a synthetic 4.6 Mb E. coli-sized genome,
    under each sort engine (lax, mp, bitonic); the lax .ctx is held
    against a numpy count of the reads' kmers and the others against its
-   bytes.  Then the same reads as mate pairs with planted duplicate
+   bytes; one lax graph build of the same reads under torch.profiler
+   gives the front-end's and segreduce's device time summed over a
+   build, its device operations and the device's busy share.  Then the
+   same reads as mate pairs with planted duplicate
    pairs, built with -p through --seq2 and through --seqi (equal bytes,
    the removed count and the kmers held against a numpy rendering of
    the rule), and once more with --intersect against the graph of the
@@ -56,7 +67,8 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    k=31 `clean -T -U`, `unitigs` and `unitigs --gfa`, each on the card
    and with the plain versions on the CPU.
 
-Prints a JSON line of per-kernel results, then `{"ok": true, "device":
+Prints a JSON line of per-kernel results (segreduce's launches split into
+the epochs' and the merges'), then `{"ok": true, "device":
 ...}` as its last line.  Exits non-zero, printing no result, when CUDA
 is unavailable or the package is not beside this script.
 """
@@ -140,6 +152,30 @@ def row(err, ms, plain_ms, nbytes, nops, library_ms=None) -> dict:
 
 def nbytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def device_profile(torch, fn):
+    """fn() once under torch.profiler (device activity only): its device
+    operations by kind (kernel, memset, memcpy), device microseconds by
+    operation name, and the host wall seconds.  Empty counts where the
+    profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kinds = {"kernel": 0, "memset": 0, "memcpy": 0}
+    us = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        kinds["memset" if "memset" in name else
+              "memcpy" if "memcpy" in name else "kernel"] += 1
+        us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return kinds, us, wall
 
 
 def keys64(planes):
@@ -235,38 +271,52 @@ def phase_kernels(torch, results):
         err = max_abs_err(torch, got, want)
         if err:
             fail(f"frontend k={k}: kernel != plain (max abs err {err})")
-        ms = time_ms(torch, lambda: frontend.records_fused(bases, k))
-        plain = time_ms(torch, lambda: frontend.records_plain(bases, k), 5)
-        print(f"frontend k={k} B={B} L={L}: exact; kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms")
+        # the epoch's layout: the first L-k+1 windows of every row
+        ep = frontend.records_epoch(bases, k)
+        err = max(err, max_abs_err(torch, ep,
+                                   frontend.records_epoch_plain(bases, k)))
+        if err:
+            fail(f"frontend k={k}: records_epoch != plain (max abs err {err})")
+        ms_all = time_ms(torch, lambda: frontend.records_fused(bases, k))
+        ms = time_ms(torch, lambda: frontend.records_epoch(bases, k))
+        plain = time_ms(torch,
+                        lambda: frontend.records_epoch_plain(bases, k), 5)
+        print(f"frontend k={k} B={B} L={L}: exact (every window and the "
+              f"epoch's {ep.shape[1]}); records_epoch kernel {ms:.4f} ms, "
+              f"every window {ms_all:.4f} ms, plain {plain:.4f} ms")
         if k == K_MAIN:
+            # bytes: the bases in, the epoch's planes out; per window the
+            # cut of two fields, the mask test, the compare and the stores
             results["frontend"] = row(
-                err, ms, plain, nbytes_of(bases, got),
-                B * L * (16 + 8 * got.shape[0] // 2))
+                err, ms, plain, nbytes_of(bases, ep),
+                ep.shape[1] * (24 + 4 * ep.shape[0]))
+            results["frontend"]["all_windows_ms"] = ms_all
 
     # segreduce, epoch shape: the sorted k=31 records of that batch
-    Lv = L - K_MAIN + 1
-    planes = torch.stack(frontend.records_fused(bases, K_MAIN))
-    epoch31 = planes[:, :, :Lv].reshape(3, B * Lv).contiguous()
+    epoch31 = frontend.records_epoch(bases, K_MAIN)
     planes = epoch31[:, sops.argsort_planes(epoch31[:2])].contiguous()
     keys, ors = planes[:2], planes[2:]
 
-    def check_segreduce(label, keys, sums, ors):
-        got = segreduce.segreduce_compact_multi(keys, sums, ors)
-        want = segreduce.segreduce_plain(keys, sums, ors)
+    def check_segreduce(label, keys, sums, ors, count=True):
+        got, n = segreduce.segreduce_planes(keys, sums, ors, count)
+        want, wn = segreduce.segreduce_planes_plain(keys, sums, ors, count)
         torch.cuda.synchronize()
-        err = max(max_abs_err(torch, g.reshape(-1), w.reshape(-1))
-                  for g, w in zip(got, want))
+        err = max_abs_err(torch, got, want) + abs(int(n) - int(wn))
+        tup = segreduce.segreduce_compact_multi(keys, sums, ors)
+        torch.cuda.synchronize()
+        for g, w in zip(tup, segreduce.segreduce_plain(keys, sums, ors)):
+            err = max(err, max_abs_err(torch, g.reshape(-1), w.reshape(-1)))
         if err:
             fail(f"segreduce {label}: kernel != plain (max abs err {err})")
-        ms = time_ms(torch,
-                     lambda: segreduce.segreduce_compact_multi(keys, sums, ors))
-        plain = time_ms(torch,
-                        lambda: segreduce.segreduce_plain(keys, sums, ors), 5)
-        print(f"segreduce {label}: n={int(got[4])} exact; kernel {ms:.4f} "
-              f"ms, plain {plain:.4f} ms")
-        # per record: the key compare, the sums and ORs, the scan
-        return row(err, ms, plain, nbytes_of(keys, sums, ors, *got),
+        ms = time_ms(torch, lambda: segreduce.segreduce_planes(keys, sums, ors,
+                                                               count))
+        plain = time_ms(torch, lambda: segreduce.segreduce_planes_plain(
+            keys, sums, ors, count), 5)
+        print(f"segreduce {label}: n={int(n)} exact (the planes with the "
+              f"count {'kept' if count else 'dropped'}, and the reference's "
+              f"tuple); kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        # per record: the key compare, the sums and ORs, the scans
+        return row(err, ms, plain, nbytes_of(keys, sums, ors, got),
                    keys.shape[1] * (keys.shape[0] + sums.shape[0]
                                     + ors.shape[0] + 4))
 
@@ -274,9 +324,10 @@ def phase_kernels(torch, results):
     results["segreduce"] = check_segreduce(
         f"epoch M={keys.shape[1]} NS=0 NO=1", keys, empty, ors)
 
-    # segreduce, merge shape (W=1, C=2): duplicates across two inputs, one
-    # run of 100000 records crossing many blocks, a sentinel tail
-    M = MERGE_ITEM
+    # segreduce, the build's merge shape (W=1, C=1, count dropped):
+    # duplicates, one run of 100000 records over many tiles, a sentinel
+    # tail
+    M = 2 * MERGE_ITEM
     pool = np.unique(rng.integers(0, 1 << 62, size=M // 2, dtype=np.uint64))
     kv = np.sort(np.concatenate([
         pool[rng.integers(0, len(pool), M - 100_000 - M // 10)],
@@ -285,11 +336,24 @@ def phase_kernels(torch, results):
     kp = np.stack([(kv >> np.uint64(32)).astype(np.uint32),
                    kv.astype(np.uint32)]).view(np.int32)
     keys = torch.from_numpy(kp).to(dev)
-    sums = torch.from_numpy(rng.integers(0, 1000, (2, M)).astype(np.int32)
+    sums = torch.from_numpy(rng.integers(1, 1000, (1, M)).astype(np.int32)
                             ).to(dev)
-    ors = torch.from_numpy(rng.integers(0, 256, (2, M)).astype(np.int32)
+    ors = torch.from_numpy(rng.integers(0, 256, (1, M)).astype(np.int32)
                            ).to(dev)
-    check_segreduce(f"merge M={M} NS=2 NO=2", keys, sums, ors)
+    merge = check_segreduce(f"merge M={M} NS=1 NO=1", keys, sums, ors,
+                            count=False)
+    results["segreduce"].update(merge_ms=merge["ms"],
+                                merge_plain_ms=merge["plain_ms"],
+                                merge_bound_ms=merge["bound_ms"])
+    del keys, sums, ors, kv, kp, pool
+
+    # device operations of one build epoch of that batch under lax
+    from mccortex_tpu_torch.graph import build as gbuild
+    gbuild._epoch(bases, K_MAIN, "lax")
+    kinds, _us, _w = device_profile(
+        torch, lambda: gbuild._epoch(bases, K_MAIN, "lax"))
+    print(f"device operations of one lax epoch (torch.profiler): "
+          f"{json.dumps(kinds) if sum(kinds.values()) else 'not measured'}")
 
     # merge path: two 4M-record sorted items (2 key planes, covg, edges),
     # unique within each, shared keys across, sentinel tails
@@ -324,7 +388,7 @@ def phase_kernels(torch, results):
     results["mergepath"] = row(err, ms, plain, nbytes_of(a, b, got),
                                2 * Mh * MERGE_OPS(2), lib)
     del ab64
-    return dict(epoch31=epoch31, bases=bases, a=a, b=b)
+    return dict(epoch31=epoch31.contiguous(), bases=bases, a=a, b=b)
 
 
 def MERGE_OPS(nk: int) -> int:
@@ -924,6 +988,7 @@ def phase_main_path(torch, tmp, card):
     print(f"main path: the .ctx of {len(ref)} bytes is byte-identical under "
           f"lax, mp and bitonic")
     del ref
+    profile_build(torch, reads)
 
     h, keys, covg, _edges = ctxio.read_ctx(out)
     kv = keys[:, 0]
@@ -952,6 +1017,40 @@ def phase_main_path(torch, tmp, card):
     print(f"main path: {len(kv)} kmers (numpy reference equal), "
           f"{int(covered.sum())} covered genome kmers all present")
     return launches, genome, reads, out
+
+
+def profile_build(torch, reads):
+    """One graph build of the E. coli reads under lax (graph.build.build,
+    batches of 2048 reads as the CLI makes them) under torch.profiler:
+    the device time of the front-end and segreduce kernels summed over
+    the build, every device operation, and the device's busy share of
+    the profiled wall."""
+    from mccortex_tpu_torch.graph import build as gbuild
+    batches = [(reads[s:s + 2048], 0) for s in range(0, len(reads), 2048)]
+    saved, gbuild.SORT_IMPL = gbuild.SORT_IMPL, "lax"
+    try:
+        gbuild.build(batches[:4], K_MAIN)
+        got = {}
+        kinds, us, wall = device_profile(
+            torch, lambda: got.update(g=gbuild.build(batches, K_MAIN)))
+    finally:
+        gbuild.SORT_IMPL = saved
+    if not sum(kinds.values()):
+        print("profiled lax build: the profiler saw no device activity "
+              "(device times not measured)")
+        return
+    fe = sum(v for k, v in us.items() if "frontend_kernel" in k)
+    sr = sum(v for k, v in us.items() if "seg_kernel" in k)
+    fill = sum(v for k, v in us.items() if "seg_fill" in k)
+    busy = sum(us.values())
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:8]
+    print(f"profiled lax build ({len(batches)} epochs, {got['g'].n} kmers): "
+          f"wall {wall:.3f}s under the profiler, device busy "
+          f"{busy / 1e3:.3f} ms = {100 * busy / 1e6 / wall:.1f} %; device "
+          f"operations {json.dumps(kinds)}; front-end kernel "
+          f"{fe / 1e3:.3f} ms, segreduce kernel {sr / 1e3:.3f} ms + its fill "
+          f"{fill / 1e3:.3f} ms; largest: "
+          + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
 
 
 def start_tokens_np(reads: np.ndarray, k: int) -> np.ndarray:
@@ -1311,6 +1410,15 @@ def main():
         "bitonic_blocksort": "mccortex_tpu/ops/pallas/bitonic.py:106",
         "bitonic_tail": "mccortex_tpu/ops/pallas/bitonic.py:141",
         "bitonic_butterfly": "mccortex_tpu/ops/pallas/bitonic.py:186"}
+    # segreduce: one call an epoch (as many as front-end calls) and one a
+    # merge (as many as merge-path calls) under lax
+    lax = by_engine["lax"]
+    results["segreduce"].update(launches_epoch=lax["frontend"],
+                                launches_merge=lax["segreduce"]
+                                - lax["frontend"])
+    if lax["segreduce"] - lax["frontend"] != lax["mergepath"]:
+        fail(f"segreduce launches {lax['segreduce']} are not one an epoch "
+             f"({lax['frontend']}) and one a merge ({lax['mergepath']})")
     kernels = []
     for name in replaces:
         if launches[name] <= 0:

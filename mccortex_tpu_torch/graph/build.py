@@ -147,20 +147,21 @@ def _epoch(bases: torch.Tensor, k: int, sort_impl: str | None = None,
     and sentinel padded, plus the unique count (host int)."""
     B, L = bases.shape
     W = nwords(k)
-    # only the first L-k+1 positions can hold a valid window
-    Lv = max(L - k + 1, 1)
-    M = B * Lv
     if W <= 2:
-        planes = torch.stack(frontend.records_fused(bases, k))
-        planes = planes[:, :, :Lv].reshape(2 * W + 1, M)
+        # the kernel writes the first L-k+1 windows of every row, the
+        # only ones that can hold a kmer
+        planes = frontend.records_epoch(bases, k)
     else:
+        Lv = frontend.epoch_windows(L, k)
+        M = B * Lv
         keys, ebyte, _valid = reads_to_records(bases, k)
         planes = torch.cat([kops.to_planes(keys[:, :Lv].reshape(M, W)),
                             ebyte[:, :Lv].reshape(1, M).to(torch.int32)])
+    M = planes.shape[1]
     planes = _sort_planes32(planes, 2 * W, sort_impl, tile)
-    okeys, count, _sums, oors, n = segreduce.segreduce_compact_multi(
-        planes[:2 * W], None, planes[2 * W:])
-    return torch.cat([okeys, count[None], oors])[:, :M], int(n)
+    out, n = segreduce.segreduce_planes(planes[:2 * W], None,
+                                        planes[2 * W:])
+    return out[:, :M], int(n)
 
 
 def count_batch(bases: torch.Tensor, k: int, ncols: int, colour: int,
@@ -204,10 +205,10 @@ def _aggregate_planes(sorted_planes: torch.Tensor, W: int, C: int):
     """The segreduce kernel over sorted record planes (coverage planes
     summed modulo 2**32, edge planes OR-ed).  Returns (planes, n): the
     unique records compacted to the front, and their number (host int)."""
-    okeys, _count, osums, oors, n = segreduce.segreduce_compact_multi(
+    planes, n = segreduce.segreduce_planes(
         sorted_planes[:2 * W], sorted_planes[2 * W:2 * W + C],
-        sorted_planes[2 * W + C:])
-    return torch.cat([okeys, osums, oors]), int(n)
+        sorted_planes[2 * W + C:], count=False)
+    return planes, int(n)
 
 
 def _aggregate_sorted(sorted_planes: torch.Tensor, W: int, C: int,

@@ -3,11 +3,16 @@
 // can run it: one host thread per CUDA thread, the blocks of a grid one
 // after another.  __syncthreads is a barrier over the block; a warp
 // shuffle, ballot or any is an exchange buffer per warp between two
-// barriers over its 32 threads; __shared__ is static (one block at a time).
+// barriers over its 32 threads; __shared__ is static (one block at a time);
+// __threadfence is a sequentially consistent fence.  Because blocks run in
+// order, a block that waits on an earlier block's published state (the
+// look-back of a single-pass scan) always finds it there: such waits are
+// checked by reading the code, not here.
 // Slow (thousands of futex waits per tile), so for logic, not for speed.
 // See emulate.py for how a .cu is rewritten to include this.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstdint>
 #include <cstdlib>
@@ -18,6 +23,7 @@
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
@@ -73,7 +79,10 @@ void launch(int grid, int block, F body) {
 }  // namespace emu
 
 inline void __syncthreads() { emu::block_barrier->arrive_and_wait(); }
-inline void __syncwarp() { emu::warp_sync(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu::warp_sync(); }
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
 
 template <class T>
 T __shfl_sync(unsigned, T v, int src) {
@@ -92,6 +101,19 @@ T __shfl_sync(unsigned, T v, int src) {
 template <class T>
 T __shfl_xor_sync(unsigned mask, T v, int d) {
   return __shfl_sync(mask, v, emu::lane() ^ d);
+}
+
+// a lane whose source lies outside the warp keeps its own value
+template <class T>
+T __shfl_up_sync(unsigned mask, T v, unsigned d) {
+  const int src = emu::lane() - (int)d;
+  return __shfl_sync(mask, v, src < 0 ? emu::lane() : src);
+}
+
+template <class T>
+T __shfl_down_sync(unsigned mask, T v, unsigned d) {
+  const int src = emu::lane() + (int)d;
+  return __shfl_sync(mask, v, src > 31 ? emu::lane() : src);
 }
 
 inline unsigned __ballot_sync(unsigned, bool pred) {
@@ -120,3 +142,18 @@ template <class T>
 T __ldg(const T* p) { return *p; }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+inline unsigned __brev(unsigned x) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= ((x >> i) & 1u) << (31 - i);
+  return r;
+}
+// the upper / lower 32 bits of the 64-bit hi:lo shifted by shift & 31
+inline unsigned __funnelshift_l(unsigned lo, unsigned hi, unsigned shift) {
+  const uint64_t x = ((uint64_t)hi << 32) | lo;
+  return (unsigned)((x << (shift & 31)) >> 32);
+}
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
+  const uint64_t x = ((uint64_t)hi << 32) | lo;
+  return (unsigned)(x >> (shift & 31));
+}

@@ -2,6 +2,7 @@
 """Run CUDA kernels of mccortex_tpu_torch/csrc on the CPU, for their logic.
 
     python scripts/cuda_emul/emulate.py [lookup] [bitonic] [tail] [mergepath]
+                                        [frontend] [segreduce]
 
 A machine without nvcc or a GPU cannot compile or run a .cu.  This
 rewrites a source for g++ (the CUDA runtime header becomes cuda_emul.h,
@@ -12,8 +13,15 @@ and holds the results against the plain PyTorch versions: the lookup
 kernel on both row widths with forced chains, the tile sort at 1 to 9
 key planes with ragged tiles and both direction rules, the tail on both
 spans with equal keys, the merge path and the merge levels (one a launch
-and fused) with ragged runs, heavy ties and windows at every alignment.
-It proves nothing about what nvcc accepts, nor about speed.
+and fused) with ragged runs, heavy ties and windows at every alignment,
+the front-end at k from 3 to 63 on rows shorter than k, ragged and long,
+with N at the first, the last and inner bases, writing every window or
+an epoch's, and the segreduce with runs that cross tiles, tiles without
+a start, sentinel-only input, wrapping sums, key planes held and not
+held in registers, the count plane dropped, and status words left by
+earlier calls.  It proves nothing about what nvcc accepts, nor about
+speed, and since blocks run in order it cannot show a look-back that
+waits on a later block.
 """
 
 from __future__ import annotations
@@ -32,8 +40,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
 sys.path.insert(0, ROOT)
 
+from mccortex_tpu_torch.constants import nwords  # noqa: E402
 from mccortex_tpu_torch.ops.kernels import (  # noqa: E402
-    bitonic, lookup, mergepath)
+    bitonic, frontend, lookup, mergepath, segreduce)
 
 CSRC = os.path.join(ROOT, "mccortex_tpu_torch", "csrc")
 
@@ -64,6 +73,10 @@ def rewrite(src: str) -> str:
                  "*dst = *src;", src)
     src = re.sub(r'asm volatile\("cp\.async\.(commit|wait)[^;]*;"[^;]*;', "",
                  src)
+    src = re.sub(r'asm volatile\("ld\.volatile\.global\.v4\.u32[^;]*;"[^;]*;',
+                 "v = *p;", src)
+    src = re.sub(r'asm volatile\("st\.volatile\.global\.v4\.u32[^;]*;"[^;]*;',
+                 "*p = v;", src)
     if "asm" in src:
         raise ValueError("an asm statement that rewrite() does not know")
     out, pos = [], 0
@@ -83,13 +96,22 @@ def rewrite(src: str) -> str:
     return "".join(out)
 
 
-def build(name: str, tmp: str, nptr: int, nint: int, symbol: str):
-    cpp, so = os.path.join(tmp, f"{name}.cpp"), os.path.join(tmp,
-                                                             f"lib{name}.so")
+def build(name: str, tmp: str, nptr: int, nint: int, symbol: str,
+          patch: tuple = (), tag: str = ""):
+    """The C entry point `symbol` of csrc/<name>.cu built for the CPU;
+    `patch` (old, new) replaces text of the source first (a variant,
+    built apart under `tag`)."""
+    cpp = os.path.join(tmp, f"{name}{tag}.cpp")
+    so = os.path.join(tmp, f"lib{name}{tag}.so")
     if not os.path.exists(so):
         with open(os.path.join(CSRC, f"{name}.cu")) as fh, \
                 open(cpp, "w") as out:
-            out.write(rewrite(fh.read()))
+            src = fh.read()
+            if patch:
+                if patch[0] not in src:
+                    raise ValueError(f"{name}.cu: no {patch[0]!r} to patch")
+                src = src.replace(*patch)
+            out.write(rewrite(src))
         subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
                         "-pthread", "-I", HERE, "-o", so, cpp], check=True)
     fn = getattr(ctypes.CDLL(so), symbol)
@@ -265,8 +287,115 @@ def check_mergepath(tmp: str) -> None:
             sys.exit(1)
 
 
+def check_frontend(tmp: str) -> None:
+    fn = build("frontend", tmp, 2, 4, "mctx_frontend")
+    for k in (3, 11, 31, 32, 33, 63):
+        for L in sorted({1, k - 1, k, 20, 150, 151, 3000}):
+            B = 2 if L >= 3000 else 5
+            rng = np.random.default_rng(k * 10000 + L)
+            bases = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
+            bases[rng.random((B, L)) < 0.02] = 4
+            bases[0, 0] = 4                      # N at the first base
+            bases[1, L - 1] = 7                  # and at the last
+            bases[-1, L // 2] = 4                # and inside
+            want_all = torch.stack(frontend.records_plain(
+                torch.from_numpy(bases), k)).numpy()
+            for lv in sorted({L, frontend.epoch_windows(L, k)}):
+                out = np.full((2 * nwords(k) + 1, B * lv), 12345, np.int32)
+                rc = fn(bases.ctypes.data, out.ctypes.data, B, L, lv, k, None)
+                want = want_all[:, :, :lv].reshape(out.shape[0], -1)
+                ok = rc == 0 and np.array_equal(out, want)
+                print(f"frontend k={k} B={B} L={L} lv={lv}: "
+                      f"{'exact' if ok else 'MISMATCH'}", flush=True)
+                if not ok:
+                    sys.exit(1)
+
+
+def _sorted_planes(rng, M, nk, n_unique, sent_frac):
+    """(nk, M) int32 key planes: n_unique random keys repeated, sorted
+    unsigned-lexicographically, then a sentinel tail."""
+    n_sent = int(M * sent_frac)
+    pool = rng.integers(0, 2**32, size=(n_unique, nk), dtype=np.uint64)
+    rows = pool[rng.integers(0, n_unique, M - n_sent)].astype(np.uint32)
+    rows = rows[np.lexsort(rows.T[::-1])]
+    rows = np.concatenate([rows, np.full((n_sent, nk), 0xFFFFFFFF,
+                                         np.uint32)])
+    return np.ascontiguousarray(rows.T).view(np.int32)
+
+
+# Blocks run in order here, so every look-back would stop at the tile
+# just before.  This variant never raises a tile's descriptor past its
+# own aggregate (tile 0 alone is a prefix), so every look-back walks back
+# to tile 0, over steps of 32 tiles.
+WALK_BACK = ("st_desc(a.desc + tile, make_uint4((a.gen << 2) | kPrefix,",
+             "if (0) st_desc(a.desc + tile, make_uint4((a.gen << 2) | kPrefix,")
+
+
+def check_segreduce(tmp: str) -> None:
+    fns = {"": build("segreduce", tmp, 7, 9, "mctx_segreduce"),
+           " (look-back to tile 0)": build(
+               "segreduce", tmp, 7, 9, "mctx_segreduce", WALK_BACK, "_walk")}
+    T = segreduce.TILE
+    desc = np.zeros((400, 4), np.uint32)
+    desc[::3, 0] = (7 << 2) | 2           # an older call's words (gen 7)
+    gen = 7
+    for variant, label, M, nk, ns, no, count, n_unique, sent in [
+            ("", "one record", 1, 2, 0, 1, 1, 1, 0.0),
+            ("", "ragged tiles", 3 * T + 77, 2, 0, 1, 1, 900, 0.1),
+            ("", "heavy duplicates", 4 * T + 5, 2, 1, 1, 0, 6, 0.0),
+            ("", "run over five tiles", 6 * T, 1, 1, 1, 1, 0, 0.0),
+            ("", "tiles without a start", 5 * T + 3, 2, 2, 2, 1, 2, 0.05),
+            ("", "all sentinels", 2 * T + 9, 2, 1, 1, 1, 1, 1.0),
+            ("", "four key planes, -1 planes", 3 * T, 4, 1, 0, 1, 400, 0.2),
+            ("", "wrapping sums", 2 * T + 1, 1, 3, 0, 0, 3, 0.0),
+            ("", "no value planes", 2 * T, 2, 0, 0, 0, 700, 0.3),
+            ("", "keys only, count", 3 * T + 1, 3, 0, 0, 1, 1000, 0.0),
+            ("", "six key planes", 3 * T + 17, 6, 1, 1, 0, 300, 0.1),
+            ("", "five key planes, 33 planes", T + 31, 5, 20, 13, 1, 50, 0.1),
+            ("w", "run over 260 tiles", 260 * T + 3, 2, 1, 1, 0, 0, 0.0),
+            ("w", "random keys", 140 * T, 2, 1, 1, 1, 30000, 0.1),
+            ("w", "three keys, 7 planes", 140 * T - 9, 1, 3, 3, 1, 3, 0.02)]:
+        fn = fns[" (look-back to tile 0)" if variant else ""]
+        rng = np.random.default_rng(M + nk + ns)
+        if n_unique:
+            keys = _sorted_planes(rng, M, nk, n_unique, sent)
+        else:                        # one key over most of the tiles
+            keys = _sorted_planes(rng, M, nk, M // 4, 0.0)
+            keys[:, 500:M - 200] = keys[:, 500:501]
+            keys = keys[:, np.lexsort(keys.view(np.uint32)[::-1])]
+        if nk == 4:                  # live keys with -1 planes
+            keys[:2, : M // 3] = -1
+            keys = keys[:, np.lexsort(keys.view(np.uint32)[::-1])]
+        lo, hi = (2**31 - 3, 2**31) if "wrap" in label else (-2**31, 2**31)
+        sums = rng.integers(lo, hi, size=(ns, M)).astype(np.int32)
+        ors = rng.integers(-2**31, 2**31, size=(no, M)).astype(np.int32)
+        keys = np.ascontiguousarray(keys)
+        nv = count + ns + no
+        tiles = -(-M // T)
+        out = np.full((nk + nv, M), 12345, np.int32)
+        extra = np.full(max(1, tiles * 2 * max(nv - 2, 0)), 99, np.int32)
+        n = np.full(1, -5, np.int32)
+        gen += 1
+        rc = fn(keys.ctypes.data, sums.ctypes.data if ns else None,
+                ors.ctypes.data if no else None, out.ctypes.data,
+                desc.ctypes.data, extra.ctypes.data, n.ctypes.data, nk,
+                ns, no, count, M, M, M, M, gen, None)
+        want, wn = segreduce.segreduce_planes_plain(
+            torch.from_numpy(keys), torch.from_numpy(sums),
+            torch.from_numpy(ors), bool(count))
+        ok = rc == 0 and int(n[0]) == int(wn) and \
+            np.array_equal(out, want.numpy())
+        print(f"segreduce{' (look-back to tile 0)' if variant else ''} "
+              f"{label}: M={M} nk={nk} ns={ns} no={no} "
+              f"count={count}, n={int(wn)}: {'exact' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok:
+            sys.exit(1)
+
+
 def main() -> None:
-    which = sys.argv[1:] or ["lookup", "bitonic", "tail", "mergepath"]
+    which = sys.argv[1:] or ["lookup", "bitonic", "tail", "mergepath",
+                             "frontend", "segreduce"]
     with tempfile.TemporaryDirectory() as tmp:
         if "lookup" in which:
             check_lookup(tmp)
@@ -276,6 +405,10 @@ def main() -> None:
             check_tail(tmp)
         if "mergepath" in which:
             check_mergepath(tmp)
+        if "frontend" in which:
+            check_frontend(tmp)
+        if "segreduce" in which:
+            check_segreduce(tmp)
     print("ok")
 
 

@@ -38,7 +38,8 @@ def _reads(seed, B, L):
 
 @pytest.mark.parametrize("k,B,L", [(11, 33, 90), (31, 300, 150),
                                    (33, 50, 151), (63, 64, 250),
-                                   (31, 5, 20), (21, 3, 3000)])
+                                   (31, 5, 20), (21, 3, 3000), (32, 40, 100),
+                                   (3, 7, 151), (11, 2, frontend.MAX_L)])
 def test_frontend_kernel_matches_plain(cuda, k, B, L):
     bases = _reads(k * B + L, B, L).to(cuda)
     n0 = _build.LAUNCHES["frontend"]
@@ -47,6 +48,40 @@ def test_frontend_kernel_matches_plain(cuda, k, B, L):
     want = frontend.records_plain(bases, k)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _reads_with_n_at_the_ends(seed, B, L):
+    """Reads with N at the first base, the last base and inside."""
+    bases = _reads(seed, B, L)
+    bases[0, 0] = 4
+    bases[min(1, B - 1), L - 1] = 7
+    bases[-1, L // 2] = 4
+    return bases
+
+
+@pytest.mark.parametrize("k", [3, 11, 31, 32, 33, 63])
+@pytest.mark.parametrize("L", ["1", "k-1", "k", "20", "150", "151", "3000"])
+def test_records_epoch_kernel_matches_plain(cuda, k, L):
+    L = {"k-1": k - 1, "k": k}.get(L) or int(L)
+    B = 3 if L >= 3000 else 40
+    bases = _reads_with_n_at_the_ends(k * 7 + L, B, L).to(cuda)
+    n0 = _build.LAUNCHES["frontend"]
+    got = frontend.records_epoch(bases, k)
+    assert _build.LAUNCHES["frontend"] == n0 + 1
+    want = frontend.records_epoch_plain(bases, k)
+    assert got.shape == (2 * (1 if k <= 32 else 2) + 1,
+                         B * frontend.epoch_windows(L, k))
+    assert torch.equal(got, want)
+    for g, w in zip(frontend.records_fused(bases, k),
+                    frontend.records_plain(bases, k)):
+        assert torch.equal(g, w)
+
+
+def test_records_epoch_of_empty_rows(cuda):
+    bases = torch.zeros((5, 0), dtype=torch.uint8, device=cuda)
+    got = frontend.records_epoch(bases, 31)
+    assert torch.equal(got, frontend.records_epoch_plain(bases, 31))
+    assert got.shape == (3, 5) and bool((got[:2] == -1).all())
 
 
 def _sorted_keys(rng, M, NK, n_unique, sent_frac):
@@ -75,6 +110,70 @@ def test_segreduce_kernel_matches_plain(cuda, M, NK, NS, NO, n_unique, sent):
     assert int(got[4]) == int(want[4])
     for g, w in zip(got[:4], want[:4]):
         assert torch.equal(g, w)
+
+
+TILE = segreduce.TILE
+
+
+@pytest.mark.parametrize("label,M,nk,ns,no,count,n_unique,sent", [
+    ("one record", 1, 2, 0, 1, 1, 1, 0.0),
+    ("ragged tiles", 3 * TILE + 77, 2, 0, 1, 1, 900, 0.1),
+    ("heavy duplicates", 4 * TILE + 5, 2, 1, 1, 0, 6, 0.0),
+    ("run over five tiles", 6 * TILE, 1, 1, 1, 1, 0, 0.0),
+    ("tiles without a start", 5 * TILE + 3, 2, 2, 2, 1, 2, 0.05),
+    ("all sentinels", 2 * TILE + 9, 2, 1, 1, 1, 1, 1.0),
+    ("four key planes, -1 planes", 3 * TILE, 4, 1, 0, 1, 400, 0.2),
+    ("wrapping sums", 2 * TILE + 1, 1, 3, 0, 0, 3, 0.0),
+    ("no value planes", 2 * TILE, 2, 0, 0, 0, 700, 0.3),
+    ("keys only, count", 3 * TILE + 1, 3, 0, 0, 1, 1000, 0.0),
+    ("three key planes, an epoch", 120 * TILE, 3, 1, 1, 0, 40000, 0.1),
+    ("six key planes", 3 * TILE + 17, 6, 1, 1, 0, 300, 0.1),
+    ("five key planes, 33 planes", TILE + 31, 5, 20, 13, 1, 50, 0.1),
+    ("run over 300 tiles", 400 * TILE + 3, 2, 1, 1, 0, 0, 0.0),
+    ("many tiles", 1_000_003, 2, 1, 1, 1, 300_000, 0.1),
+    ("merge shape", 1 << 23, 2, 1, 1, 0, 1 << 21, 0.1)])
+def test_segreduce_planes_kernel_matches_plain(cuda, label, M, nk, ns, no,
+                                               count, n_unique, sent):
+    rng = np.random.default_rng(M + nk + ns)
+    if n_unique:
+        keys = _sorted_keys(rng, M, nk, n_unique, sent)
+    else:                            # one key over most of the tiles
+        keys = _sorted_keys(rng, M, nk, M // 4, 0.0)
+        keys[:, 500:M - 200] = keys[:, 500:501].clone()
+        keys = keys[:, sops.argsort_planes(keys)]
+    if nk == 4:                      # live keys with -1 planes
+        keys[:2, :M // 3] = -1
+        keys = keys[:, sops.argsort_planes(keys)]
+    lo, hi = (2**31 - 3, 2**31) if "wrap" in label else (-2**31, 2**31)
+    sums = torch.from_numpy(rng.integers(lo, hi, size=(ns, M))
+                            .astype(np.int32)).to(cuda)
+    ors = torch.from_numpy(rng.integers(-2**31, 2**31, size=(no, M))
+                           .astype(np.int32)).to(cuda)
+    keys = keys.contiguous().to(cuda)
+    n0 = _build.LAUNCHES["segreduce"]
+    got, n = segreduce.segreduce_planes(keys, sums if ns else None,
+                                        ors if no else None, bool(count))
+    assert _build.LAUNCHES["segreduce"] == n0 + 1
+    want, wn = segreduce.segreduce_planes_plain(keys, sums, ors, bool(count))
+    assert int(n) == int(wn)
+    assert got.shape == (nk + count + ns + no, M) and torch.equal(got, want)
+
+
+def test_segreduce_planes_on_row_views_of_one_tensor(cuda):
+    """Key, sum and or planes as row slices of one record tensor (the
+    build's layout), twice on one stream: the second call reuses the
+    scratch under a newer generation."""
+    rng = np.random.default_rng(5)
+    for M, n_unique in ((70000, 2000), (5000, 4999)):
+        keys = _sorted_keys(rng, M, 2, n_unique, 0.2)
+        vals = torch.from_numpy(rng.integers(0, 256, size=(2, M))
+                                .astype(np.int32))
+        rec = torch.cat([keys, vals]).to(cuda)
+        got, n = segreduce.segreduce_planes(rec[:2], rec[2:3], rec[3:],
+                                            count=False)
+        want, wn = segreduce.segreduce_planes_plain(rec[:2], rec[2:3],
+                                                    rec[3:], False)
+        assert int(n) == int(wn) and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("Ma,Mb,np_,nk,hi", [

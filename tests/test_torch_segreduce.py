@@ -59,14 +59,26 @@ CASES = ["heavy_dup", "all_sentinel", "no_sentinel_tail",
          "run_at_block_edge", "two_key_planes", "sums_and_ors"]
 
 
+_JAX_CASES = {}
+
+
+def _jax_case(name, M):
+    """A case and the Pallas kernel's result on it (interpret mode),
+    computed once for the tests of this file."""
+    if (name, M) not in _JAX_CASES:
+        keys, sums, ors = _case(name, M)
+        out = jsr.segreduce_compact_multi(
+            tuple(jnp.asarray(x) for x in keys),
+            tuple(jnp.asarray(x) for x in sums),
+            tuple(jnp.asarray(x) for x in ors), interpret=True)
+        _JAX_CASES[name, M] = (keys, sums, ors), out
+    return _JAX_CASES[name, M]
+
+
 @pytest.mark.parametrize("M", [32768, 65536])
 @pytest.mark.parametrize("name", CASES)
 def test_matches_pallas_kernel(name, M):
-    keys, sums, ors = _case(name, M)
-    jk, jc, js, jo, jn = jsr.segreduce_compact_multi(
-        tuple(jnp.asarray(x) for x in keys),
-        tuple(jnp.asarray(x) for x in sums),
-        tuple(jnp.asarray(x) for x in ors), interpret=True)
+    (keys, sums, ors), (jk, jc, js, jo, jn) = _jax_case(name, M)
     tk, tc, ts, to, tn = tsr.segreduce_compact_multi(
         torch.from_numpy(keys), torch.from_numpy(sums),
         torch.from_numpy(ors))
@@ -77,6 +89,55 @@ def test_matches_pallas_kernel(name, M):
         assert got.shape[0] == len(want)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("count", [True, False])
+@pytest.mark.parametrize("name", CASES)
+def test_planes_match_pallas_kernel(name, count):
+    """segreduce_planes: the Pallas kernel's outputs as one tensor of
+    planes (keys, the count only with count=True, sums, ors)."""
+    (keys, sums, ors), (jk, jc, js, jo, jn) = _jax_case(name, 32768)
+    planes, n = tsr.segreduce_planes(torch.from_numpy(keys),
+                                     torch.from_numpy(sums),
+                                     torch.from_numpy(ors), count=count)
+    want = [np.asarray(x) for x in jk] + ([np.asarray(jc)] if count else []) \
+        + [np.asarray(x) for x in js] + [np.asarray(x) for x in jo]
+    assert int(n) == int(jn)
+    assert planes.dtype == torch.int32 and planes.shape == (len(want), 32768)
+    np.testing.assert_array_equal(planes.numpy(), np.stack(want))
+
+
+def test_planes_of_a_record_tensor_and_without_value_planes():
+    """Key, sum and or planes as row views of one record tensor (the
+    build's layout), and keys alone with and without the count."""
+    (keys, sums, ors), (jk, jc, js, jo, jn) = _jax_case("sums_and_ors", 32768)
+    rec = torch.from_numpy(np.concatenate([keys, sums, ors]))
+    planes, n = tsr.segreduce_planes(rec[:2], rec[2:4], rec[4:], count=False)
+    np.testing.assert_array_equal(
+        planes.numpy(), np.stack([np.asarray(x) for x in (*jk, *js, *jo)]))
+    for count in (True, False):
+        planes, n = tsr.segreduce_planes(rec[:2], count=count)
+        assert planes.shape == (2 + count, 32768) and int(n) == int(jn)
+        np.testing.assert_array_equal(planes[:2].numpy(), np.stack(jk))
+        if count:
+            np.testing.assert_array_equal(planes[2].numpy(), np.asarray(jc))
+
+
+def test_scratch_generations(monkeypatch):
+    """The look-back's descriptors are zeroed only when allocated (and
+    after GEN_LIMIT calls); every call takes a newer generation, and a
+    larger call grows the buffers."""
+    monkeypatch.setattr(tsr, "GEN_LIMIT", 4)
+    s = tsr._Scratch(torch.device("cpu"))
+    desc, extra, gen = s.take(10, 40)
+    assert gen == 1 and desc.shape == (10, 4) and extra.numel() >= 40
+    desc[:] = 7
+    assert s.take(5, 10)[2] == 2 and int(s.desc[0, 0]) == 7
+    assert s.take(10, 80)[2] == 3 and s.extra.numel() >= 80
+    desc, _extra, gen = s.take(10, 80)      # the generation wraps: zeroed
+    assert gen == 1 and int(desc.abs().sum()) == 0
+    desc, _extra, gen = s.take(25, 10)      # more tiles: new zeroed words
+    assert gen == 1 and desc.shape[0] >= 25 and int(desc.abs().sum()) == 0
 
 
 @pytest.mark.parametrize("W,C", [(1, 1), (2, 3)])
