@@ -41,10 +41,17 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    sort-merge joins (lookup_join, variants lax and mp) are timed; then
    on tables crowded by a forced small b_bits, where probes chain over
    many rows and past the last row;
+4a. ingest: the native sequence reader is built with g++ and zlib (a
+   failure is fatal), then the E. coli FASTQ below is read through the
+   Python reader and through the native reader without and with
+   prefetch, as `build` reads it: the batches must be equal, and each
+   reader's seconds are printed;
 4. the build path at real size: `mctx-torch build -k 31` (the CLI entry
    point, called in-process so the kernels' launch counts are visible)
    on 20x of 150 bp reads of a synthetic 4.6 Mb E. coli-sized genome,
-   under each sort engine (lax, mp, bitonic); the lax .ctx is held
+   under each sort engine (lax, mp, bitonic) through the native reader,
+   then once more under lax through the Python reader, each with its
+   CLI wall split into read, graph build and write; the lax .ctx is held
    against a numpy count of the reads' kmers and the others against its
    bytes; one lax graph build of the same reads under torch.profiler
    gives the front-end's and segreduce's device time summed over a
@@ -62,10 +69,18 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    each command's wall time and its split (table build on the host,
    adjacency, pointer doubling, extraction), the cleaning threshold and
    the genome and non-genome kmers kept;
+4c. `graph/kmer_occur.build_kograph` of that raw graph against its
+   genome, which must launch the lookup kernel; its CSR is held against
+   a numpy index of the genome's kmers;
 5. byte identity: a 2-colour build of a 200 kb genome at k=31 and k=63
-   (k=31 under every sort engine), a --graph + --seq2 -p build, then at
-   k=31 `clean -T -U`, `unitigs` and `unitigs --gfa`, each on the card
-   and with the plain versions on the CPU.
+   (k=31 under every sort engine), colour a's reads as SAM, BAM and CRAM
+   (each must give the FASTQ build's bytes), a --graph + --seq2 -p
+   build, then at k=31 `clean -T -U`, `unitigs` and `unitigs --gfa`,
+   each on the card and with the plain versions on the CPU;
+5b. the store-only commands on the k=31 graphs, on the card and on the
+   CPU, with equal outputs: `join` (two graphs, --flatten, -i), `check`,
+   `view -k -i`, `dist`, `sort` of a scrambled copy and `index`; join
+   must launch the segreduce kernel, and join -i the lookup kernel.
 
 Prints a JSON line of per-kernel results (segreduce's launches split into
 the epochs' and the merges'), then `{"ok": true, "device":
@@ -223,9 +238,50 @@ def write_fastq(path: str, reads: np.ndarray, quals: np.ndarray | None = None):
                                               qchars[i].tobytes()))
 
 
-def canonical_kmers_np(seqs: np.ndarray, k: int) -> np.ndarray:
-    """Canonical k <= 31 kmers (uint64) of every window of every row of
-    an N-free (n, L) code array, row-major."""
+def write_sam(path: str, reads: np.ndarray, quals: np.ndarray):
+    """Unmapped SAM records of the reads, with a header line."""
+    seqs = np.frombuffer(b"ACGTN", np.uint8)[reads]
+    qchars = (quals + 33).astype(np.uint8)
+    with open(path, "wb") as fh:
+        fh.write(b"@HD\tVN:1.6\tSO:unsorted\n")
+        for i in range(reads.shape[0]):
+            fh.write(b"r%d\t4\t*\t0\t0\t*\t*\t0\t0\t%s\t%s\n"
+                     % (i, seqs[i].tobytes(), qchars[i].tobytes()))
+
+
+def write_bam(path: str, reads: np.ndarray, quals: np.ndarray):
+    """Unmapped BAM records of the reads (one gzip member: BGZF readers
+    take it), 4-bit bases, phred qualities."""
+    import gzip
+    import struct
+    nib = np.array([1, 2, 4, 8, 15], np.uint8)[reads]      # =ACMGRSVTWYHKDBN
+    L = reads.shape[1]
+    if L % 2:
+        nib = np.concatenate([nib, np.zeros((len(nib), 1), np.uint8)], 1)
+    packed = (nib[:, 0::2] << 4) | nib[:, 1::2]
+    out = [b"BAM\x01", struct.pack("<i", 0), struct.pack("<i", 0)]
+    for i in range(reads.shape[0]):
+        qn = b"r%d\x00" % i
+        body = struct.pack("<iiBBHHHiiii", -1, -1, len(qn), 0, 4680, 0, 4, L,
+                           -1, -1, 0)
+        body += qn + packed[i].tobytes() + quals[i].tobytes()
+        out.append(struct.pack("<i", len(body)) + body)
+    with gzip.open(path, "wb") as fh:
+        fh.write(b"".join(out))
+
+
+def write_cram(path: str, reads: np.ndarray, quals: np.ndarray):
+    """Unmapped CRAM 3.0 records of the reads (rANS blocks), written by
+    the port's own CRAM writer."""
+    from mccortex_tpu_torch.io import cram
+    seqs = np.frombuffer(b"ACGTN", np.uint8)[reads]
+    cram.write_cram(path, [(f"r{i}", seqs[i].tobytes().decode(), quals[i])
+                           for i in range(reads.shape[0])])
+
+
+def kmers_np(seqs: np.ndarray, k: int):
+    """(forward, reverse complement) k <= 31 kmers (uint64) of every
+    window of every row of an N-free (n, L) code array, row-major."""
     n, L = seqs.shape
     nw = L - k + 1
     fw = np.zeros((n, nw), np.uint64)
@@ -235,7 +291,13 @@ def canonical_kmers_np(seqs: np.ndarray, k: int) -> np.ndarray:
         b = seqs[:, t:t + nw].astype(np.uint64)
         fw = (fw << np.uint64(2)) | b
         rc = (rc >> np.uint64(2)) | ((np.uint64(3) - b) << top)
-    return np.minimum(fw, rc).reshape(-1)
+    return fw.reshape(-1), rc.reshape(-1)
+
+
+def canonical_kmers_np(seqs: np.ndarray, k: int) -> np.ndarray:
+    """Canonical k <= 31 kmers (uint64) of every window of every row of
+    an N-free (n, L) code array, row-major."""
+    return np.minimum(*kmers_np(seqs, k))
 
 
 def valid_windows_np(reads: np.ndarray, k: int) -> int:
@@ -949,6 +1011,83 @@ def build_seconds(log: str) -> float:
     return float(m.group(3)) if m else float("nan")
 
 
+def read_span(log: str):
+    """(seconds, reader name) of a build's "read N batches" line."""
+    m = re.search(r"read \d+ batches in ([\d.]+)s \((\w+) reader\)", log)
+    return (float(m.group(1)), m.group(2)) if m else (float("nan"), None)
+
+
+def write_seconds(log: str) -> float:
+    m = re.search(r"wrote \d+ kmers x \d+ colours to .* in ([\d.]+)s", log)
+    return float(m.group(1)) if m else float("nan")
+
+
+@contextlib.contextmanager
+def python_reader():
+    """Builds inside read through the port's Python parser: the native
+    library reads as unavailable."""
+    from mccortex_tpu_torch import native
+    saved = native.get_lib
+    native.get_lib = lambda: None
+    try:
+        yield
+    finally:
+        native.get_lib = saved
+
+
+def phase_ingest(fq: str, nreads: int) -> dict:
+    """4a: the E. coli FASTQ through the Python reader and the native
+    reader, without and with prefetch, as `build` reads it (overlap k):
+    the batches must be equal; the seconds of each."""
+    from mccortex_tpu_torch import native
+    from mccortex_tpu_torch.io import seqio
+
+    gpp = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, timeout=60)
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    if lib is None:
+        fail(f"the native reader did not build or load: {native.LOG}")
+    print(f"native reader: {os.path.relpath(native.SO, HERE)} built from "
+          f"{os.path.relpath(native.SRC, HERE)} in "
+          f"{time.perf_counter() - t0:.2f}s by "
+          f"{gpp.stdout.splitlines()[0] if gpp.stdout else 'g++'} "
+          f"(zlib.h and -lz found)")
+
+    def run(prefetch):
+        t0 = time.perf_counter()
+        got = list(seqio.read_batches_native([fq], overlap=K_MAIN,
+                                             prefetch=prefetch))
+        return got, time.perf_counter() - t0
+
+    secs = {}
+    nat0, secs["native"] = run(0)
+    natp, secs["native_prefetch"] = run(4)
+    with python_reader():
+        if seqio.reader_name() != "python":
+            fail("the Python reader could not be selected")
+        py, secs["python"] = run(0)
+    for label, other in (("native with prefetch", natp), ("python", py)):
+        if len(other) != len(nat0):
+            fail(f"ingest: the {label} reader gave {len(other)} batches, "
+                 f"the native {len(nat0)}")
+        for (a, qa, _), (b, qb, _) in zip(nat0, other):
+            if not np.array_equal(a, b) or (qa is None) != (qb is None) or \
+                    (qa is not None and not np.array_equal(qa, qb)):
+                fail(f"ingest: the {label} reader's batches differ from the "
+                     f"native reader's")
+    rows = sum(c.shape[0] for c, _q, _col in nat0)
+    if rows != nreads:
+        fail(f"ingest: {rows} rows for {nreads} reads")
+    print(f"ingest of {nreads} reads ({os.path.getsize(fq)} bytes of FASTQ, "
+          f"{len(nat0)} batches): python reader {secs['python']:.3f}s, "
+          f"native {secs['native']:.3f}s, native with prefetch "
+          f"{secs['native_prefetch']:.3f}s "
+          f"({secs['python'] / secs['native_prefetch']:.1f}x); the three "
+          f"give equal batches")
+    return secs
+
+
 def count_kmers_np(reads: np.ndarray, k: int):
     want = [canonical_kmers_np(reads[s:s + 100_000], k)
             for s in range(0, len(reads), 100_000)]
@@ -965,19 +1104,35 @@ def phase_main_path(torch, tmp, card):
     print(f"E. coli-sized input: {len(genome)} bp genome, {len(reads)} reads "
           f"x {reads.shape[1]} bp (made in {time.perf_counter() - t0:.1f}s)")
     obs = valid_windows_np(reads, K_MAIN)
+    phase_ingest(fq, len(reads))
     # lax runs first and last: the spread of two runs of one engine on a
-    # shared host stands beside the differences between engines
+    # shared host stands beside the differences between engines; then
+    # one lax build through the Python reader, the CLI wall before the
+    # native reader
     out, ref, launches = None, None, {}
-    for turn, engine in enumerate(("lax", "mp", "bitonic", "lax")):
+    for turn, (engine, reader) in enumerate((
+            ("lax", "native"), ("mp", "native"), ("bitonic", "native"),
+            ("lax", "native"), ("lax", "python"))):
         path = os.path.join(tmp, f"ecoli_{turn}.ctx")
-        log, wall, launches[engine] = build_under(
-            engine, ["build", "-k", str(K_MAIN), "--sample", "ecoli", "--seq",
-                     fq, path, "--device", "cuda"])
+        with python_reader() if reader == "python" else \
+                contextlib.nullcontext():
+            log, wall, launched = build_under(
+                engine, ["build", "-k", str(K_MAIN), "--sample", "ecoli",
+                         "--seq", fq, path, "--device", "cuda"])
+        if reader == "native":
+            launches[engine] = launched
         build_s = build_seconds(log)
-        print(f"main path on {card} under MCTX_SORT={engine}: mctx-torch "
-              f"build wall {wall:.3f}s ({obs / wall / 1e6:.2f}M kmer-obs/s), "
-              f"graph build {build_s:.3f}s ({obs / build_s / 1e6:.2f}M "
-              f"kmer-obs/s), {obs} kmer-obs")
+        read_s, read_by = read_span(log)
+        if read_by != reader:
+            fail(f"the build read through the {read_by} reader, not the "
+                 f"{reader} one")
+        write_s = write_seconds(log)
+        print(f"main path on {card} under MCTX_SORT={engine}, {reader} "
+              f"reader: mctx-torch build wall {wall:.3f}s ({obs / wall / 1e6:.2f}"
+              f"M kmer-obs/s) = read {read_s:.3f}s + graph build "
+              f"{build_s:.3f}s ({obs / build_s / 1e6:.2f}M kmer-obs/s) + "
+              f"write {write_s:.3f}s + other "
+              f"{wall - read_s - build_s - write_s:.3f}s, {obs} kmer-obs")
         if out is None:
             out, ref = path, open(path, "rb").read()
             continue
@@ -986,7 +1141,7 @@ def phase_main_path(torch, tmp, card):
                  f"one")
         os.remove(path)
     print(f"main path: the .ctx of {len(ref)} bytes is byte-identical under "
-          f"lax, mp and bitonic")
+          f"lax, mp and bitonic, and through the Python reader")
     del ref
     profile_build(torch, reads)
 
@@ -1264,6 +1419,50 @@ def phase_graph_path(torch, tmp, card, raw, genome):
     return lookups
 
 
+def phase_kograph(torch, raw, genome, gfa):
+    """4c: the reference-position index of the E. coli graph against its
+    genome (graph/kmer_occur.build_kograph), which must launch the lookup
+    kernel; its CSR is held against a numpy index of the genome's
+    kmers."""
+    from mccortex_tpu_torch.graph import kmer_occur as ko
+    from mccortex_tpu_torch.graph import store as gstore
+    from mccortex_tpu_torch.io import ctx as ctxio
+    from mccortex_tpu_torch.ops.kernels import _build
+
+    _h, keys, covg, edges = ctxio.read_ctx(raw)
+    g = gstore.from_host(keys, covg, edges, K_MAIN, "cuda")
+    ref = ko.RefGenome.from_fasta(gfa)
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    kg = ko.build_kograph(g, ref)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = dict(_build.LAUNCHES)
+    if launched.get("lookup", 0) <= 0:
+        fail("build_kograph never launched the lookup kernel")
+    fw, rc = kmers_np(genome[None, :], K_MAIN)
+    gk = np.minimum(fw, rc)
+    kv = keys[:, 0]
+    at = np.minimum(np.searchsorted(kv, gk), len(kv) - 1)
+    hit = kv[at] == gk
+    pos = np.nonzero(hit)[0]
+    rows = at[hit]
+    order = np.lexsort((pos, rows))
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(
+        rows, minlength=len(kv)))])
+    if not (np.array_equal(kg.offsets.numpy(), offsets)
+            and np.array_equal(kg.pos.numpy(), pos[order])
+            and np.array_equal(kg.orient.numpy(),
+                               (rc < fw)[hit][order].astype(np.uint8))
+            and not kg.chrom.numpy().any()):
+        fail("build_kograph's CSR differs from the numpy index of the "
+             "genome's kmers")
+    print(f"kmer_occur.build_kograph of the {len(kv)}-kmer graph against the "
+          f"{len(genome)} bp genome: {kg.noccurs} occurrences, equal to the "
+          f"numpy index; {secs:.3f}s (launches {json.dumps(launched)})")
+    del g
+
+
 def phase_byte_identity(torch, tmp):
     rng = np.random.default_rng(2)
     genome, reads0, _ = genome_and_reads(200_000, 10.0, seed=3)
@@ -1275,8 +1474,36 @@ def phase_byte_identity(torch, tmp):
     reads1 = np.lib.stride_tricks.sliding_window_view(alt, 150)[st].copy()
     reads1[rng.random(reads1.shape) < 0.002] = 4
     fq0, fq1 = os.path.join(tmp, "c0.fq"), os.path.join(tmp, "c1.fq")
-    write_fastq(fq0, reads0, rng.integers(2, 41, reads0.shape).astype(np.uint8))
+    quals0 = rng.integers(2, 41, reads0.shape).astype(np.uint8)
+    write_fastq(fq0, reads0, quals0)
     write_fastq(fq1, reads1)
+    # colour a's reads as SAM, BAM and CRAM: each builds the FASTQ's bytes
+    # (the qualities masked by -Q 5 included), on the card and on the CPU
+    fmt = {"fastq": fq0}
+    for name, writer in (("sam", write_sam), ("bam", write_bam),
+                         ("cram", write_cram)):
+        fmt[name] = os.path.join(tmp, f"c0.{name}")
+        writer(fmt[name], reads0, quals0)
+    want = None
+    for name, path in fmt.items():
+        walls = {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"fmt_{name}_{dev}.ctx")
+            t0 = time.perf_counter()
+            log = run_cli(["build", "-k", str(K_MAIN), "-Q", "5", "--sample",
+                           "a", "--seq", path, out, "--device", dev])
+            walls[dev] = (time.perf_counter() - t0, read_span(log))
+            data = open(out, "rb").read()
+            if want is None:
+                want = data
+            elif data != want:
+                fail(f"the {name} build on {dev} differs from the FASTQ "
+                     f"build on the card")
+        print(f"byte identity {name} -> .ctx (k={K_MAIN}, -Q 5, {len(reads0)} "
+              f"reads): {len(want)} bytes, CUDA == CPU == the FASTQ build; "
+              f"wall {walls['cuda'][0]:.3f}s on the card (read "
+              f"{walls['cuda'][1][0]:.3f}s, {walls['cuda'][1][1]} reader), "
+              f"{walls['cpu'][0]:.3f}s on the CPU")
     for k in (K_MAIN, 63):
         outs = {}
         for dev in ("cuda", "cpu"):
@@ -1338,6 +1565,67 @@ def phase_byte_identity(torch, tmp):
         print(f"byte identity {name} (k={K_MAIN}): {len(got['cpu'][0])} "
               f"bytes, CUDA == CPU (wall {got['cuda'][1]:.3f}s on the card, "
               f"{got['cpu'][1]:.3f}s on the CPU)")
+    phase_store_cmds(tmp, raw, os.path.join(tmp, "fmt_sam_cuda.ctx"))
+
+
+def run_cli_out(argv) -> tuple:
+    """The port's CLI in-process with stdout and stderr captured; returns
+    (stdout, stderr)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        err = run_cli(argv)
+    return buf.getvalue(), err
+
+
+def phase_store_cmds(tmp, two, one):
+    """5b: the store-only commands on the k=31 graphs (`two`: 2 colours,
+    `one`: 1 colour), on the card and on the CPU: output bytes, text and
+    status lines equal; the kernels each launches on the card."""
+    from mccortex_tpu_torch.io import ctx as ctxio
+    from mccortex_tpu_torch.ops.kernels import _build
+
+    h, keys, covg, edges = ctxio.read_ctx(two)
+    perm = np.random.default_rng(4).permutation(len(keys))
+    scrambled = os.path.join(tmp, "scrambled.ctx")
+    ctxio.write_ctx(scrambled, h, keys[perm], covg[perm], edges[perm])
+    cases = (  # name, argv with OUT for the output file, kernels required
+        ("join", ["join", "-o", "OUT", two, one], ("segreduce",)),
+        ("join --flatten", ["join", "--flatten", "-o", "OUT", two, one],
+         ("segreduce",)),
+        ("join -i", ["join", "-i", one, "-o", "OUT", two],
+         ("segreduce", "lookup")),
+        ("check", ["check", two], ()),
+        ("view -k -i", ["view", "-k", "-i", two], ()),
+        ("dist", ["dist", "-o", "OUT", two], ()),
+        ("sort", ["sort", "-o", "OUT", scrambled], ()),
+        ("index", ["index", "-b", "1000", "-o", "OUT", two], ()))
+    for name, argv, need in cases:
+        got = {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"cmd_{dev}.out")
+            if os.path.exists(out):
+                os.remove(out)
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            text, err = run_cli_out([out if a == "OUT" else a for a in argv]
+                                    + ["--device", dev])
+            wall = time.perf_counter() - t0
+            launched = dict(_build.LAUNCHES)
+            data = open(out, "rb").read() if "OUT" in argv else b""
+            got[dev] = (data, text, re.sub(r"in [\d.]+s", "", err), wall,
+                        launched)
+        if got["cuda"][:3] != got["cpu"][:3]:
+            fail(f"{name}: the CUDA and CPU outputs differ")
+        for kernel in need:
+            if got["cuda"][4].get(kernel, 0) <= 0:
+                fail(f"{name} on the card never launched the {kernel} kernel")
+        if name == "sort" and got["cuda"][0] != open(two, "rb").read():
+            fail("sort did not restore the sorted graph")
+        print(f"store command {name} (k={K_MAIN}): "
+              f"{len(got['cuda'][0]) + len(got['cuda'][1])} bytes out, CUDA "
+              f"== CPU; wall {got['cuda'][3]:.3f}s on the card "
+              f"(launches {json.dumps(got['cuda'][4])}), "
+              f"{got['cpu'][3]:.3f}s on the CPU")
 
 
 def main():
@@ -1385,6 +1673,10 @@ def main():
         del reads
         # 4b. clean and unitigs on its graph
         lookups = phase_graph_path(torch, tmp, card, raw, genome)
+        # 4c. the reference-position index of that graph
+        phase_kograph(torch, raw, genome, os.path.join(tmp, "genome.fa"))
+        del genome
+        torch.cuda.empty_cache()
         # 5. CUDA and CPU outputs byte for byte
         phase_byte_identity(torch, tmp)
 

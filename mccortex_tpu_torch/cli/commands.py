@@ -1,7 +1,7 @@
-"""mctx-torch subcommands (counterpart of mccortex_tpu/cli/commands.py).
-
-Ported so far: build (all of `mctx build` on one device except --ref and
-SAM/BAM/CRAM input), clean, unitigs.
+"""mctx-torch subcommands (counterpart of mccortex_tpu/cli/commands.py):
+build (all of `mctx build` on one device), view, check (without -p),
+clean, unitigs.  The store-only commands of
+mccortex_tpu/cli/commands2.py are in commands2.py.
 """
 
 from __future__ import annotations
@@ -28,11 +28,11 @@ def cmd_build(argv):
         epilog="colour tasks (order on the command line defines the "
                "colours): -s/--sample <name> starts a colour; "
                "-1/--seq <in>, -2/--seq2 <in1>:<in2> (or two args), "
-               "-i/--seqi <interleaved> add that colour's reads (FASTA or "
-               "FASTQ, plain or gz); -g/--graph <in.ctx> slots an existing "
-               "graph's colours in at its position.  The sort engine is "
-               "the environment variable MCTX_SORT: lax (default), lax64, "
-               "mp, bitonic")
+               "-i/--seqi <interleaved> add that colour's reads (FASTA, "
+               "FASTQ, SAM, BAM or CRAM, plain or gz); -g/--graph <in.ctx> "
+               "slots an existing graph's colours in at its position.  The "
+               "sort engine is the environment variable MCTX_SORT: lax "
+               "(default), lax64, mp, bitonic")
     p.add_argument("-k", "--kmer", type=int, required=True)
     p.add_argument("-Q", "--fq-cutoff", type=int, default=0)
     p.add_argument("-O", "--fq-offset", type=int, default=0,
@@ -53,7 +53,10 @@ def cmd_build(argv):
                         "store is always sorted)")
     p.add_argument("-I", "--intersect", default=None,
                    help="only keep kmers also present in this graph")
-    p.add_argument("--ref", default=None, help="not yet ported")
+    p.add_argument("--ref", default=None,
+                   help="reference FASTA that mapped CRAM records are "
+                        "rebuilt against (unmapped CRAMs and CRAMs with "
+                        "an embedded reference need none)")
     p.add_argument("-t", "--threads", type=int, default=None,
                    help="accepted for parity")
     p.add_argument("--devices", default=None,
@@ -62,8 +65,6 @@ def cmd_build(argv):
     p.add_argument("out", nargs="?", default=None)
     add_common(p, memory=True, nkmers=True)
     args, tasks = _parse_build_tasks(p, argv)
-    if args.ref:
-        _not_ported(p, "--ref")
     out = args.out_explicit or args.out
     if not out:
         p.error("output .ctx path required")
@@ -83,8 +84,13 @@ def cmd_build(argv):
     from ..graph import store as gstore
     from ..io import ctx as ctxio
     from ..io import seqio
-    from ..ops import sorted as sops
     from ..utils import membudget as mb
+
+    cram_ref = None
+    if args.ref:
+        from ..graph.kmer_occur import RefGenome
+        cram_ref = RefGenome.from_fasta(args.ref).as_dict()
+    reader = dict(fq_offset=args.fq_offset, cram_ref=cram_ref)
 
     def _mask(codes, quals):
         if quals is not None and args.fq_cutoff:
@@ -143,9 +149,8 @@ def cmd_build(argv):
         for entry in files:
             kind = entry[0]
             if kind == "se":
-                for codes, quals, _ in seqio.read_batches_chunked(
-                        [entry[1]], colour=colour, overlap=k,
-                        fq_offset=args.fq_offset):
+                for codes, quals, _ in seqio.read_batches_native(
+                        [entry[1]], colour=colour, overlap=k, **reader):
                     kept = _keep(codes, None, quals)
                     if kept is not None:
                         _emit(kept[0], kept[2])
@@ -154,7 +159,7 @@ def cmd_build(argv):
                 # were seen
                 for c1, c2, _ in seqio.read_batches_pe(
                         entry[1], entry[2], colour=colour,
-                        matedir=args.matepair, fq_offset=args.fq_offset):
+                        matedir=args.matepair, **reader):
                     kept = _keep(c1, c2)
                     if kept is not None:
                         _emit(kept[0], None)
@@ -162,7 +167,7 @@ def cmd_build(argv):
             else:   # interleaved: even rows = r1, odd rows = r2
                 for c1, c2, q1, q2, _ in seqio.read_batches_interleaved(
                         entry[1], colour=colour, matedir=args.matepair,
-                        fq_offset=args.fq_offset):
+                        **reader):
                     kept = _keep(c1, c2, q1, q2)
                     if kept is not None:
                         _emit(kept[0], kept[2])
@@ -174,7 +179,8 @@ def cmd_build(argv):
                f"{total_seq} bases")
         colour += 1
     ncols = colour
-    status(f"read {len(batches)} batches in {time.perf_counter() - t0:.3f}s")
+    status(f"read {len(batches)} batches in {time.perf_counter() - t0:.3f}s "
+           f"({seqio.reader_name()} reader)")
     if args.remove_pcr:
         status(f"removed {ndup} PCR duplicate reads")
     budget = None
@@ -203,13 +209,7 @@ def cmd_build(argv):
         hi_, ikeys, _ic, _ie = ctxio.read_ctx(args.intersect)
         if hi_.kmer_size != k:
             p.error(f"--intersect kmer size {hi_.kmer_size} != {k}")
-        if len(ikeys):
-            _idx, found = sops.lookup(
-                torch.from_numpy(ikeys.view(np.int64)).to(device), g.keys)
-            keep = found & ~sops.is_sentinel(g.keys)
-        else:
-            keep = torch.zeros(g.capacity, dtype=torch.bool, device=device)
-        g = gstore.from_records(k, g.keys[keep], g.covg[keep], g.edges[keep])
+        g = intersect_store(g, ikeys)
         for gi in ginfo:
             gi.cleaning.is_graph_intersection = True
             gi.cleaning.intersection_name = args.intersect
@@ -224,6 +224,25 @@ def cmd_build(argv):
     status(f"wrote {len(keys)} kmers x {ncols} colours to {out} in "
            f"{time.perf_counter() - t0:.3f}s")
     return 0
+
+
+def intersect_store(g, ikeys):
+    """The store's records whose kmer is among `ikeys` (uint64 (M, W),
+    another graph's keys), as a store on the same device.  The store's
+    kmers are looked up in a table of `ikeys` (ops/hashidx.lookup: the
+    lookup kernel on the card)."""
+    from ..graph import store as gstore
+    from ..ops import hashidx
+    from ..ops import sorted as sops
+    if len(ikeys):
+        table_keys = torch.from_numpy(
+            np.ascontiguousarray(ikeys).view(np.int64)).to(g.device)
+        _idx, found = hashidx.lookup(table_keys, g.keys)
+        keep = found & ~sops.is_sentinel(g.keys)
+    else:
+        keep = torch.zeros(g.capacity, dtype=torch.bool, device=g.device)
+    return gstore.from_records(g.k, g.keys[keep], g.covg[keep],
+                               g.edges[keep])
 
 
 def _store_from_host_records(k, parts, ncols, device):
@@ -244,6 +263,96 @@ def _store_from_host_records(k, parts, ncols, device):
         k, torch.from_numpy(np.concatenate(allk).view(np.int64)).to(device),
         torch.from_numpy(np.concatenate(allc).view(np.int32)).to(device),
         torch.from_numpy(np.concatenate(alle)).to(device))
+
+
+# ---------------------------------------------------------------------------
+# view and check
+# ---------------------------------------------------------------------------
+
+def cmd_view(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch view")
+    p.add_argument("-k", "--kmers", action="store_true",
+                   help="print every kmer with its coverages and edges")
+    p.add_argument("-i", "--info", action="store_true",
+                   help="print the header")
+    p.add_argument("-c", "--check", action="store_true",
+                   help="check the graph's integrity")
+    p.add_argument("ctx")
+    add_common(p)
+    args = p.parse_args(argv)
+    status, device = apply_common(args)
+    if not (args.kmers or args.info or args.check):
+        args.info = args.check = True
+
+    from ..io import ctx as ctxio
+    h, keys, covg, edges = ctxio.read_ctx(args.ctx)
+    if args.info:
+        print(f"version: {h.version}")
+        print(f"kmer size: {h.kmer_size}")
+        print(f"bitfields: {h.W}")
+        print(f"colours: {h.ncols}")
+        print(f"number of kmers: {len(keys)}")
+        for i, gi in enumerate(h.ginfo):
+            print(f"Colour {i}:")
+            print(f"  sample name: '{gi.sample_name}'")
+            print(f"  mean input contig length: {gi.mean_read_length}")
+            print(f"  total sequence loaded:    {gi.total_sequence}")
+    if args.kmers:
+        _print_kmers(h, keys, covg, edges)
+    if args.check:
+        errs = check_graph_arrays(h.kmer_size, keys, covg, edges, device)
+        for e in errs:
+            print(f"check: {e}", file=sys.stderr)
+        if errs:
+            return 1
+        status("graph check passed")
+    return 0
+
+
+def _print_kmers(h, keys, covg, edges, out=None):
+    """Text dump, a line a kmer: '<kmer> <covg...> <edges...>'."""
+    out = out or sys.stdout
+    from ..utils.text import edges_to_strings, kmers_to_strings
+    kstrs = kmers_to_strings(keys, h.kmer_size)
+    estrs = edges_to_strings(edges)
+    for i in range(len(keys)):
+        cov = " ".join(str(c) for c in covg[i].tolist())
+        out.write(f"{kstrs[i]} {cov} {' '.join(estrs[i])}\n")
+
+
+def check_graph_arrays(k, keys, covg, edges, device) -> list:
+    """Structural checks of host records (keys (N, W) uint64, covg (N, C)
+    uint32, edges (N, C) uint8), run on `device`: sorted unique keys,
+    canonical keys, no kmer without coverage, edge symmetry."""
+    from ..utils import checks
+    return checks.check_graph_arrays(
+        k, torch.from_numpy(np.ascontiguousarray(keys).view(np.int64)
+                            ).to(device),
+        torch.from_numpy(np.ascontiguousarray(covg).view(np.int32)
+                         ).to(device),
+        torch.from_numpy(np.ascontiguousarray(edges)).to(device))
+
+
+def cmd_check(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch check")
+    p.add_argument("-p", "--paths", action="append", default=[],
+                   help="link files to verify against the graph (not yet "
+                        "ported)")
+    p.add_argument("ctx")
+    add_common(p)
+    args = p.parse_args(argv)
+    if args.paths:
+        _not_ported(p, "-p/--paths")
+    status, device = apply_common(args)
+    from ..io import ctx as ctxio
+    h, keys, covg, edges = ctxio.read_ctx(args.ctx)
+    errs = check_graph_arrays(h.kmer_size, keys, covg, edges, device)
+    for e in errs:
+        print(f"check: {e}", file=sys.stderr)
+    if errs:
+        return 1
+    status(f"{args.ctx}: OK ({len(keys)} kmers, {h.ncols} colours)")
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -318,13 +427,10 @@ def cmd_clean(argv):
                    help="unitig length histogram CSV before cleaning")
     p.add_argument("-L", "--len-after", default=None,
                    help="unitig length histogram CSV after cleaning")
-    p.add_argument("-m", "--memory", default=None, help="not yet ported")
     p.add_argument("-o", "--out", required=True)
     p.add_argument("ctx", nargs="+")
-    add_common(p)
+    add_common(p, memory=True)
     args = p.parse_args(argv)
-    if args.memory:
-        _not_ported(p, "-m/--memory")
     status, device = apply_common(args, args.out, args.covg_before,
                                   args.covg_after, args.len_before,
                                   args.len_after)
@@ -332,6 +438,10 @@ def cmd_clean(argv):
     from ..graph import clean as gclean
     h, g = _load_graphs(args.ctx, device)
     k = h.kmer_size
+    if args.memory:
+        from ..utils import membudget as mb
+        status(mb.check_plan(mb.parse_mem(args.memory),
+                             mb.graph_mem_bytes(g.capacity, h.W, h.ncols)))
 
     if args.covg_before or args.len_before:
         kh, uh, lh = gclean.cleaning_histograms(g)

@@ -1,0 +1,378 @@
+"""Store-only mctx-torch subcommands (counterpart of part of
+mccortex_tpu/cli/commands2.py): join, dist, sort, index, uniqkmers,
+rmsubstr.  They need nothing beyond the store, the lookup and the `.ctx`
+IO: join rebuilds its store on the device (graph/store.from_records:
+the sort and segreduce kernels on the card) and intersects through the
+batched lookup; dist and sort run on the device; index, uniqkmers and
+rmsubstr are host code.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gzip
+import random
+import sys
+
+import numpy as np
+import torch
+
+from .commands import _load_graph, _save_graph, intersect_store
+from .common import add_common, apply_common, check_kmer, parse_size
+
+
+# ---------------------------------------------------------------------------
+# join: merge graphs with colour offsets
+# ---------------------------------------------------------------------------
+
+def cmd_join(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch join")
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--flatten", action="store_true",
+                   help="sum all colours into one")
+    p.add_argument("-i", "--intersect", action="append", default=[],
+                   help="only keep kmers present in this graph "
+                        "(repeatable = intersection of all of them); the "
+                        "graph itself is NOT merged into the output")
+    p.add_argument("-N", "--ncols", type=int, default=None,
+                   help="colours to load at once (accepted for parity: "
+                        "all colours load in one pass)")
+    p.add_argument("-S", "--sort", action="store_true",
+                   help="output sorted graph (always true: .ctx is "
+                        "written sorted)")
+    p.add_argument("ctx", nargs="+",
+                   help="input graphs; 'N:file.ctx' loads file at colour "
+                        "offset N; 'file.ctx:0,2-3' selects colours")
+    add_common(p)
+    args = p.parse_args(argv)
+    status, device = apply_common(args, args.out)
+    from ..graph import store as gstore
+    from ..io import ctx as ctxio
+
+    inputs = []
+    for spec in args.ctx:
+        off, cols = None, None
+        path = spec
+        if ":" in spec and spec.split(":")[0].isdigit():
+            off, path = spec.split(":", 1)
+            off = int(off)
+        if ":" in path and not path.split(":")[-1].endswith(".ctx"):
+            # colour selection suffix: "in.ctx:0,2-3,*"
+            path, colspec = path.rsplit(":", 1)
+            cols = _parse_colour_range(colspec)
+        h, keys, covg, edges = ctxio.read_ctx(path)
+        if cols is not None:
+            sel = [c for c in cols if c < h.ncols] if cols != "*" \
+                else list(range(h.ncols))
+            covg = covg[:, sel]
+            edges = edges[:, sel]
+            h.ginfo = [h.ginfo[c] for c in sel]
+            keep = covg.sum(axis=1) > 0
+            keys, covg, edges = keys[keep], covg[keep], edges[keep]
+        inputs.append((off, h, keys, covg, edges))
+
+    k = inputs[0][1].kmer_size
+    for off, h, *_ in inputs:
+        if h.kmer_size != k:
+            raise ValueError("kmer sizes differ between inputs")
+
+    # colour offsets: given, or after the colours placed so far
+    ncols_out = 0
+    placed = []
+    next_off = 0
+    for off, h, keys, covg, edges in inputs:
+        o = off if off is not None else next_off
+        placed.append((o, h, keys, covg, edges))
+        next_off = max(next_off, o + h.ncols)
+        ncols_out = max(ncols_out, o + h.ncols)
+    if args.flatten:
+        ncols_out = 1
+
+    ginfo = [ctxio.GraphInfo() for _ in range(ncols_out)]
+    allk, allc, alle = [], [], []
+    for o, h, keys, covg, edges in placed:
+        C = h.ncols
+        cw = np.zeros((len(keys), ncols_out), np.uint32)
+        ew = np.zeros((len(keys), ncols_out), np.uint8)
+        if args.flatten:
+            cw[:, 0] = covg.sum(axis=1)
+            for c in range(C):
+                ew[:, 0] |= edges[:, c]
+        else:
+            cw[:, o:o + C] = covg
+            ew[:, o:o + C] = edges
+            for c in range(C):
+                gi = ginfo[o + c]
+                gi.sample_name = h.ginfo[c].sample_name
+                gi.total_sequence += h.ginfo[c].total_sequence
+                gi.mean_read_length = max(gi.mean_read_length,
+                                          h.ginfo[c].mean_read_length)
+        allk.append(keys)
+        allc.append(cw)
+        alle.append(ew)
+
+    g = gstore.from_records(
+        k, torch.from_numpy(np.concatenate(allk).view(np.int64)).to(device),
+        torch.from_numpy(np.concatenate(allc).view(np.int32)).to(device),
+        torch.from_numpy(np.concatenate(alle)).to(device))
+    for ipath in args.intersect:
+        hi, ikeys, _ic, _ie = ctxio.read_ctx(ipath)
+        if hi.kmer_size != k:
+            raise ValueError(f"{ipath}: kmer size mismatch")
+        g = intersect_store(g, ikeys)
+        status(f"intersected with {ipath}: {g.n} kmers remain")
+    _save_graph(args.out, ctxio.CtxHeader(kmer_size=k, ginfo=ginfo), g)
+    status(f"joined {len(inputs)} graphs -> {g.n} kmers x "
+           f"{ncols_out} colours")
+    return 0
+
+
+def _parse_colour_range(spec):
+    """Parse "1,3-5" colour selections ("*" = every colour)."""
+    if spec == "*":
+        return "*"
+    out = []
+    for part in spec.split(","):
+        if "-" in part:
+            a, b = part.split("-")
+            out.extend(range(int(a), int(b) + 1))
+        else:
+            out.append(int(part))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dist: colour x colour shared-kmer matrix
+# ---------------------------------------------------------------------------
+
+def cmd_dist(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch dist")
+    p.add_argument("-o", "--out", default="-",
+                   help="output matrix, tab separated [default: STDOUT]")
+    p.add_argument("ctx")
+    add_common(p)
+    args = p.parse_args(argv)
+    _status, device = apply_common(args, args.out)
+    h, g = _load_graph(args.ctx, device)
+    # mat[i, j] = kmers present in colours i and j; float64 products of
+    # 0/1 values are exact up to 2**53 kmers
+    present = (g.covg[:g.n] != 0).to(torch.float64)
+    mat = (present.T @ present).to(torch.int64).cpu().numpy()
+    C = h.ncols
+    out = sys.stdout if args.out == "-" else open(args.out, "w")
+    try:
+        out.write("\t" + "\t".join(gi.sample_name for gi in h.ginfo) + "\n")
+        for i in range(C):
+            out.write(h.ginfo[i].sample_name + "\t"
+                      + "\t".join(str(mat[i, j]) for j in range(C)) + "\n")
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# sort / index: graphs are always written sorted; sort re-sorts foreign
+# files, index writes block offsets
+# ---------------------------------------------------------------------------
+
+def cmd_sort(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch sort")
+    p.add_argument("-o", "--out", default=None,
+                   help="output file [default: overwrite input in place]")
+    p.add_argument("ctx")
+    add_common(p)
+    args = p.parse_args(argv)
+    # rewriting the input in place is the default: no force check
+    status, device = apply_common(
+        args, args.out if args.out != args.ctx else None)
+    from ..io import ctx as ctxio
+    from ..ops import sorted as sops
+    h, keys, covg, edges = ctxio.read_ctx(args.ctx)
+    skeys, scovg, sedges = sops.sort_by_key(
+        torch.from_numpy(keys.view(np.int64)).to(device),
+        torch.from_numpy(covg.view(np.int32)).to(device),
+        torch.from_numpy(edges).to(device))
+    ctxio.write_ctx(args.out or args.ctx, h,
+                    skeys.cpu().numpy().view(np.uint64),
+                    scovg.cpu().numpy().view(np.uint32), sedges.cpu().numpy())
+    status(f"sorted {len(keys)} kmers")
+    return 0
+
+
+def cmd_index(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch index")
+    p.add_argument("-b", "--block-kmers", type=int, default=None,
+                   help="kmers per block [default: 4096]")
+    p.add_argument("-s", "--block-size", default=None,
+                   help="block size in BYTES, e.g. 4M (converted to kmers "
+                        "from the record size)")
+    p.add_argument("-o", "--out", default=None)
+    p.add_argument("ctx")
+    add_common(p)
+    args = p.parse_args(argv)
+    from ..io import ctx as ctxio
+    from ..utils.text import kmers_to_strings
+    out = args.out or (args.ctx + ".idx")
+    status, _device = apply_common(args, out)
+    h, keys, _covg, _edges = ctxio.read_ctx(args.ctx)
+    bk = args.block_kmers
+    if args.block_size is not None:
+        if bk is not None:
+            p.error("give either --block-kmers or --block-size")
+        recbytes = 8 * h.W + h.ncols * 5
+        bk = max(1, parse_size(args.block_size) // recbytes)
+    if bk is None:
+        bk = 4096
+    firsts = kmers_to_strings(keys[::bk], h.kmer_size)
+    with open(out, "w") as fh:
+        fh.write("#block_start_kmer\tindex\tnkmers\n")
+        for b, s in enumerate(range(0, len(keys), bk)):
+            fh.write(f"{firsts[b]}\t{s}\t{min(bk, len(keys) - s)}\n")
+    status(f"indexed {len(keys)} kmers in blocks of {bk}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# uniqkmers: random kmers absent from the given sequences and graph
+# ---------------------------------------------------------------------------
+
+def cmd_uniqkmers(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch uniqkmers")
+    p.add_argument("-k", "--kmer", type=int, required=True)
+    p.add_argument("-F", "--flank", default=None,
+                   help="FASTA whose sequences get unique flanks appended")
+    p.add_argument("-g", "--graph", default=None,
+                   help="also avoid kmers in this .ctx graph")
+    p.add_argument("-1", "--seq", action="append", default=[],
+                   help="also avoid kmers present in this sequence file")
+    p.add_argument("-o", "--out", default="-",
+                   help="output file [default: STDOUT]")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("num", type=int)
+    add_common(p)
+    args = p.parse_args(argv)
+    apply_common(args, args.out)
+    from ..io import seqio
+    from ..utils.dna import revcomp
+    rng = random.Random(args.seed)
+    k = args.kmer
+    check_kmer(k, p)
+
+    taken = set()
+
+    def add_seq_kmers(seq):
+        for i in range(len(seq) - k + 1):
+            km = seq[i:i + k]
+            taken.add(min(km, revcomp(km)))
+
+    seqs = []
+    if args.flank:
+        for rd in seqio.parse_reads(args.flank):
+            seqs.append((rd.name, rd.seq))
+            add_seq_kmers(rd.seq)
+    for sf in args.seq:
+        for rd in seqio.parse_reads(sf):
+            add_seq_kmers(rd.seq)
+    if args.graph:
+        from ..io import ctx as ctxio
+        from ..utils.text import kmers_to_strings
+        h, keys, _, _ = ctxio.read_ctx(args.graph)
+        if h.kmer_size == k:
+            taken.update(kmers_to_strings(keys, k))
+
+    def fresh_kmer():
+        while True:
+            km = "".join(rng.choice("ACGT") for _ in range(k))
+            key = min(km, revcomp(km))
+            if key not in taken:
+                taken.add(key)
+                return km
+
+    ofh = sys.stdout if args.out == "-" else open(args.out, "w")
+    try:
+        # a unique kmer either side of each sequence, drawn again until
+        # the kmers across the junctions are unique too
+        for name, seq in seqs:
+            for _ in range(1000):
+                left, right = fresh_kmer(), fresh_kmer()
+                full = left + seq + right
+                border = [full[i:i + k] for i in range(0, 2 * k)] + \
+                    [full[i:i + k]
+                     for i in range(len(full) - 2 * k, len(full) - k + 1)]
+                counts = {}
+                for i in range(len(full) - k + 1):
+                    key = min(full[i:i + k], revcomp(full[i:i + k]))
+                    counts[key] = counts.get(key, 0) + 1
+                if all(counts[min(b, revcomp(b))] == 1 for b in border):
+                    ofh.write(f">{name}\n{full}\n")
+                    break
+            else:
+                raise ValueError("could not generate unique flanks")
+        for i in range(args.num):
+            ofh.write(f">kmer{i}\n{fresh_kmer()}\n")
+    finally:
+        if ofh is not sys.stdout:
+            ofh.close()
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# rmsubstr: drop sequences that are substrings of others
+# ---------------------------------------------------------------------------
+
+class _SeqWriter:
+    """FASTA/FASTQ writer, gzip when the path ends .gz."""
+
+    def __init__(self, path, fmt):
+        self.fmt = fmt
+        self.fh = (gzip.open(path, "wt") if str(path).endswith(".gz")
+                   else (sys.stdout if path == "-" else open(path, "w")))
+
+    def write(self, rd):
+        if self.fmt == "fastq":
+            q = rd.quals
+            qs = ("".join(chr(min(int(x), 93) + 33) for x in q)
+                  if q is not None else "?" * len(rd.seq))
+            self.fh.write(f"@{rd.name}\n{rd.seq}\n+\n{qs}\n")
+        else:
+            self.fh.write(f">{rd.name}\n{rd.seq}\n")
+
+    def close(self):
+        if self.fh is not sys.stdout:
+            self.fh.close()
+
+
+def cmd_rmsubstr(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch rmsubstr")
+    p.add_argument("-o", "--out", default="-")
+    p.add_argument("-k", "--kmer", type=int, default=None,
+                   help="accepted for parity (matching is exact substring "
+                        "search)")
+    p.add_argument("-F", "--format", default="fasta",
+                   type=lambda s: s.lower(), choices=["fasta", "fastq"],
+                   help="output format [default: FASTA]")
+    p.add_argument("-v", "--invert", action="store_true",
+                   help="only print sequences that ARE substrings of "
+                        "others")
+    p.add_argument("fasta", nargs="+")
+    add_common(p)
+    args = p.parse_args(argv)
+    status, _device = apply_common(args, args.out)
+    from ..io import seqio
+    from ..utils.dna import revcomp
+    reads = [rd for f in args.fasta for rd in seqio.parse_reads(f)]
+    reads.sort(key=lambda r: -len(r.seq))
+    kept, dropped = [], []
+    for rd in reads:
+        rc = revcomp(rd.seq)
+        dup = any(rd.seq in other or rc in other for other, _r in kept)
+        (dropped if dup else kept).append((rd.seq, rd))
+    out = _SeqWriter(args.out, args.format)
+    try:
+        for _seq, rd in (dropped if args.invert else kept):
+            out.write(rd)
+    finally:
+        out.close()
+    status(f"rmsubstr: kept {len(kept)}/{len(reads)}")
+    return 0

@@ -6,12 +6,24 @@ import sys
 
 
 def _commands() -> dict:
-    from . import commands
+    from . import commands, commands2
     return {"build": (commands.cmd_build, "reads -> coloured .ctx graph"),
+            "view": (commands.cmd_view, "print graph info / kmers"),
+            "check": (commands.cmd_check, "validate graph file integrity"),
             "clean": (commands.cmd_clean,
                       "remove tips + low-coverage unitigs"),
             "unitigs": (commands.cmd_unitigs,
-                        "dump unitigs as FASTA/GFA/DOT")}
+                        "dump unitigs as FASTA/GFA/DOT"),
+            "join": (commands2.cmd_join, "merge graphs with colour offsets"),
+            "dist": (commands2.cmd_dist,
+                     "colour x colour shared-kmer matrix"),
+            "sort": (commands2.cmd_sort, "sort a graph file's kmer records"),
+            "index": (commands2.cmd_index,
+                      "write a block index for a sorted graph"),
+            "uniqkmers": (commands2.cmd_uniqkmers,
+                          "emit unique kmers / flank seqs"),
+            "rmsubstr": (commands2.cmd_rmsubstr,
+                         "remove duplicate/substring seqs")}
 
 
 def main(argv=None):

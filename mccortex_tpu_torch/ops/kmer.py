@@ -156,6 +156,13 @@ def oriented(keys: torch.Tensor, orient: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(orient[..., None].to(torch.bool), rc, keys)
 
 
+def first_base(kmers: torch.Tensor, k: int) -> torch.Tensor:
+    """Most significant (first) base of each kmer, uint8."""
+    off = 2 * (k - 1)
+    w = kmers.shape[-1] - 1 - off // 64
+    return (srl(kmers[..., w], off % 64) & 3).to(torch.uint8)
+
+
 def shift_append(kmers: torch.Tensor, base: torch.Tensor, k: int
                  ) -> torch.Tensor:
     """kmer<<2 | base, masked to 2k bits."""

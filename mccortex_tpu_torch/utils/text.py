@@ -1,6 +1,6 @@
-"""Host-side text conversions for kmers (numpy, no device).  Copy of
-kmers_to_strings in mccortex_tpu/utils/text.py; tests hold the two
-equal."""
+"""Host-side text conversions for kmers and edges (numpy, no device).
+Copies of kmers_to_strings and edges_to_strings in
+mccortex_tpu/utils/text.py; tests hold the two equal."""
 
 from __future__ import annotations
 
@@ -18,3 +18,22 @@ def kmers_to_strings(keys: np.ndarray, k: int) -> list:
     codes = ((keys[:, widx] >> sh) & np.uint64(3)).astype(np.uint8)
     chars = _CHARS[codes]
     return [bytes(row).decode() for row in chars]
+
+
+def _edge_string(e: int) -> str:
+    """One edge byte as 8 characters: the preceding bases 'acgt' (the
+    high nibble, bit-reversed), then the following bases 'ACGT' (the low
+    nibble), '.' where unset."""
+    left = [(e >> (7 - b)) & 1 for b in range(4)]
+    right = [(e >> b) & 1 for b in range(4)]
+    return ("".join("acgt"[b] if left[b] else "." for b in range(4))
+            + "".join("ACGT"[b] if right[b] else "." for b in range(4)))
+
+
+_EDGE_STRS = np.array([_edge_string(e) for e in range(256)], dtype=object)
+
+
+def edges_to_strings(edges: np.ndarray) -> list:
+    """(N, C) uint8 -> [[8-char string per colour]], as
+    edges_to_strings in mccortex_tpu/utils/text.py gives."""
+    return _EDGE_STRS[edges].tolist()

@@ -225,12 +225,17 @@ def test_cli_multicolour_masked_build_matches_mctx(tmp_path, monkeypatch, k):
         assert covg[:, 0].sum() > 0
 
 
-@pytest.mark.parametrize("flag", [["--ref", "ref.fa"], ["--devices", "2"]])
+@pytest.mark.parametrize("flag", [["check", "-p", "links.ctp"],
+                                  ["build", "--devices", "2"]])
 def test_cli_rejects_flags_not_ported(tmp_path, flag, capsys):
     fa, _ = _write_inputs(tmp_path)
+    out = str(tmp_path / "o.ctx")
+    assert port_main(["build", "-k", "21", "--sample", "s", "--seq", fa,
+                      "--device", "cpu", "-q", out]) == 0
+    args = ["--sample", "s", "--seq", fa, "-k", "21", str(tmp_path / "p.ctx")] \
+        if flag[0] == "build" else [out]
     with pytest.raises(SystemExit) as e:
-        port_main(["build", "-k", "21", "--sample", "s", "--seq", fa] + flag
-                  + ["--device", "cpu", str(tmp_path / "o.ctx")])
+        port_main(flag + args + ["--device", "cpu"])
     assert e.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
 

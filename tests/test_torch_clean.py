@@ -3,6 +3,8 @@
 Integer outputs, CSV text and file bytes: exact equality, no tolerance;
 the threshold fit is a numpy copy and must give the same floats."""
 
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -212,9 +214,10 @@ def test_cli_unitig_inputs_of_the_jax_tests(tmp_path, capsys):
 
 def test_cli_refusals(tmp_path, ctx_files):
     out = str(tmp_path / "o.ctx")
-    with pytest.raises(SystemExit):
-        port_main(["clean", "-m", "1G", "-o", out, ctx_files["a11"],
+    with pytest.raises(MemoryError, match="budget is 1.0KB"):
+        port_main(["clean", "-m", "1K", "-o", out, ctx_files["a11"],
                    "--device", "cpu"])
+    assert not os.path.exists(out)
     if not torch.cuda.is_available():
         assert port_main(["clean", "-T", "-o", out, ctx_files["a11"]]) == 1
         assert port_main(["unitigs", ctx_files["a11"]]) == 1

@@ -22,6 +22,8 @@ bad = sorted(m for m in sys.modules
              or m == "mccortex_tpu" or m.startswith("mccortex_tpu."))
 from mccortex_tpu_torch.ops.kernels import _build
 assert not _build._libs and not _build.LOGS   # nothing built or loaded
+from mccortex_tpu_torch import native
+assert native._lib is None and not native._tried
 print(len(names), bad)
 assert not bad, bad
 """
@@ -33,7 +35,7 @@ def test_every_module_imports_without_jax(tmp_path):
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 27      # ... incl. ops.kernels.bitonic, utils.membudget
+    assert n_modules >= 36      # ... incl. native, io.cram, cli.commands2
 
 
 def _sources(exts):
