@@ -72,6 +72,19 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
 4c. `graph/kmer_occur.build_kograph` of that raw graph against its
    genome, which must launch the lookup kernel; its CSR is held against
    a numpy index of the genome's kmers;
+4d. the graph walks on the cleaned graph of 4b: `mctx-torch contigs`
+   over the whole graph (the linkless unitig-hop walker, batches of 512
+   seeds), `assemble_linkless_contigs` of 256 seeds at max_len 200,000
+   (the recipe of scripts/scale_test.py), cold and warm, `inferedges`
+   (--pop on the graph, --all on a copy with ~1 % of its edge bits
+   cleared) and `subgraph --dist 5` of a 20 kb slice of the genome; each
+   command must launch the lookup kernel.  Checked in numpy: every
+   contig's kmers are in the graph and the longest contig is a
+   substring of the genome or its reverse complement; inferred edges
+   only add bits, each joining two kmers covered in its colour, and
+   --all restores exactly the bits cleared; the subgraph is a subset of
+   the graph holding every slice kmer the graph has.  One batch of the hop walker runs under torch.profiler:
+   device operations per hop and the device's busy share;
 5. byte identity: a 2-colour build of a 200 kb genome at k=31 and k=63
    (k=31 under every sort engine), colour a's reads as SAM, BAM and CRAM
    (each must give the FASTQ build's bytes), a --graph + --seq2 -p
@@ -80,7 +93,12 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
 5b. the store-only commands on the k=31 graphs, on the card and on the
    CPU, with equal outputs: `join` (two graphs, --flatten, -i), `check`,
    `view -k -i`, `dist`, `sort` of a scrambled copy and `index`; join
-   must launch the segreduce kernel, and join -i the lookup kernel.
+   must launch the segreduce kernel, and join -i the lookup kernel;
+5c. `contigs -N 64`, `inferedges`, `subgraph -U` and `pjoin -r` (of a
+   link file the port's save_ctp wrote) on that 2-colour graph, on the
+   card and on the CPU: the same FASTA and .ctx bytes and the same
+   decompressed .ctp text (the date fixed); the inferred edges held to
+   the numpy rule as in 4d.
 
 Prints a JSON line of per-kernel results (segreduce's launches split into
 the epochs' and the merges'), then `{"ok": true, "device":
@@ -1463,6 +1481,265 @@ def phase_kograph(torch, raw, genome, gfa):
     del g
 
 
+def codes_of(seq: bytes) -> np.ndarray:
+    return CHAR_CODES[np.frombuffer(seq, np.uint8)]
+
+
+def neighbour_keys_np(keys: np.ndarray, o: int, n: int, k: int) -> np.ndarray:
+    """Canonical key of the kmer reached from each key (k <= 31) read in
+    orientation o by appending base n."""
+    okm = keys if o == 0 else revcomp_np(keys, k)
+    nxt = ((okm << np.uint64(2)) | np.uint64(n)) & np.uint64((1 << 2 * k) - 1)
+    return np.minimum(nxt, revcomp_np(nxt, k))
+
+
+def rows_of(keys: np.ndarray, q: np.ndarray):
+    """(row, found) of each query key in the sorted keys."""
+    pos = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+    return pos, keys[pos] == q
+
+
+def check_contigs(seqs: list, keys: np.ndarray, genome: np.ndarray, k: int,
+                  label: str) -> dict:
+    """Every contig's canonical kmers are kmers of the graph, and the
+    longest contig is a substring of the genome or of its reverse
+    complement (numpy, independent of the port).  Returns N50 and
+    lengths."""
+    if not seqs:
+        fail(f"{label}: no contigs")
+    for s in seqs:
+        c = codes_of(s)
+        if len(c) < k or (c > 3).any():
+            fail(f"{label}: a contig of {len(c)} bases is shorter than k or "
+                 f"holds a base other than ACGT")
+        if not rows_of(keys, canonical_kmers_np(c[None, :], k))[1].all():
+            fail(f"{label}: a contig holds a kmer the graph does not")
+    best = max(seqs, key=len)
+    fw = np.frombuffer(b"ACGT", np.uint8)[genome].tobytes()
+    rc = np.frombuffer(b"ACGT", np.uint8)[3 - genome[::-1]].tobytes()
+    if best not in fw and best not in rc:
+        fail(f"{label}: the longest contig ({len(best)} bp) is not a "
+             f"substring of the genome or of its reverse complement")
+    lens = np.sort(np.array([len(s) for s in seqs]))[::-1]
+    n50 = int(lens[np.searchsorted(np.cumsum(lens), lens.sum() / 2)])
+    return dict(n=len(seqs), max=int(lens[0]), n50=n50,
+                total=int(lens.sum()))
+
+
+def check_inferred(before: str, after: str, k: int) -> int:
+    """inferedges only adds edge bits, and each new bit of colour c joins
+    two kmers that both have coverage in c (infer_edges.py's rule, in
+    numpy).  Returns the number of bits added."""
+    from mccortex_tpu_torch.io import ctx as ctxio
+    _h, keys, covg, edges = ctxio.read_ctx(before)
+    _h, keys2, covg2, edges2 = ctxio.read_ctx(after)
+    keys, keys2 = keys[:, 0], keys2[:, 0]
+    if not (np.array_equal(keys, keys2) and np.array_equal(covg, covg2)):
+        fail("inferedges changed the kmers or their coverage")
+    if (edges & ~edges2).any():
+        fail("inferedges removed an edge bit")
+    added = edges2 & ~edges
+    for o in (0, 1):
+        for n in range(4):
+            bit = np.uint8(1 << (n + 4 * o))
+            r, c = np.nonzero(added & bit)
+            if not len(r):
+                continue
+            j, found = rows_of(keys, neighbour_keys_np(keys[r], o, n, k))
+            if not (found & (covg[r, c] > 0) & (covg[j, c] > 0)).all():
+                fail(f"inferedges added an edge (orient {o}, base {n}) "
+                     f"that does not join two kmers covered in its colour")
+    return int(np.unpackbits(added).sum())
+
+
+class HopCounter:
+    """Counts the hop walker's steps (graph/traverse._hop_step calls) and
+    the contig batches walked (assemble_linkless_contigs calls), and
+    keeps the arguments of the first step that has live walkers."""
+
+    def __init__(self, T):
+        self.T, self.hops, self.batches, self.first = T, 0, 0, None
+        self._step, self._assemble = T._hop_step, T.assemble_linkless_contigs
+
+    def __enter__(self):
+        def step(hg, st, bufs, colour, max_len):
+            self.hops += 1
+            if self.first is None:
+                self.first = (hg, st, [b.clone() for b in bufs], colour,
+                              max_len)
+            return self._step(hg, st, bufs, colour, max_len)
+
+        def assemble(*a, **kw):
+            self.batches += 1
+            return self._assemble(*a, **kw)
+
+        self.T._hop_step, self.T.assemble_linkless_contigs = step, assemble
+        return self
+
+    def __exit__(self, *exc):
+        self.T._hop_step = self._step
+        self.T.assemble_linkless_contigs = self._assemble
+
+
+def lookups_of(argv, label) -> tuple:
+    """One port command through the CLI on the card, with the launch
+    counts set to 0 just before and read just after; it must launch the
+    lookup kernel.  Returns (stderr, wall, lookup launches)."""
+    from mccortex_tpu_torch.ops.kernels import _build
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    log = run_cli(argv + ["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launched = dict(_build.LAUNCHES)
+    if launched.get("lookup", 0) <= 0:
+        fail(f"mctx-torch {label} never launched the lookup kernel")
+    return log, wall, launched["lookup"]
+
+
+def phase_graph_walks(torch, tmp, card, genome) -> int:
+    """4d: linkless contigs, edge inference and a subgraph on the cleaned
+    E. coli graph of phase 4b, through the CLI on the card, each held to
+    numpy checks; assemble_linkless_contigs with 256 seeds, cold and
+    warm; one batch of the hop walker under torch.profiler.  Returns the
+    lookup kernel's launches."""
+    from mccortex_tpu_torch.graph import store as gstore
+    from mccortex_tpu_torch.graph import traverse as T
+    from mccortex_tpu_torch.io import ctx as ctxio
+
+    cln = os.path.join(tmp, "clean.ctx")
+    h, keys, covg, edges = ctxio.read_ctx(cln)
+    kv = keys[:, 0]
+    lookups = 0
+    fa = os.path.join(tmp, "contigs.fa")
+    with HopCounter(T) as hc:
+        log, wall, nl = lookups_of(["contigs", "-o", fa, cln],
+                                   "contigs")
+    lookups += nl
+    st = check_contigs(read_fasta_seqs(fa), kv, genome, K_MAIN,
+                       "mctx-torch contigs")
+    halts = re.search(r"contigs halt reasons: (.*)", log)
+    print(f"graph walks on {card}: mctx-torch contigs of the {len(kv)}-kmer "
+          f"cleaned graph (--batch 512, --max-len 65536, --no-reseed) wall "
+          f"{wall:.3f}s; {hc.batches} batches walked of "
+          f"{-(-len(kv) // 512)}, {st['n']} contigs, {hc.hops} hops; total "
+          f"{st['total']} bp, max {st['max']}, N50 {st['n50']}; lookup "
+          f"launches {nl}; halt reasons: "
+          f"{halts.group(1) if halts else 'missing'}; split: "
+          f"{time_split(log)}")
+    if not halts:
+        fail("contigs printed no halt-reason line")
+
+    # the recipe of scripts/scale_test.py: 256 seeds, max_len 200,000
+    g = gstore.from_host(keys, covg, edges, K_MAIN, "cuda")
+    seeds = np.random.default_rng(0).integers(0, len(kv), 256)
+    walls = []
+    for turn in ("cold", "warm"):
+        with HopCounter(T) as hc:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            contigs, _stops = T.assemble_linkless_contigs(
+                g, seeds, colour=0, max_len=200_000)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    st = check_contigs([c.encode() for c in contigs], kv, genome, K_MAIN,
+                       "assemble_linkless_contigs")
+    print(f"assemble_linkless_contigs, 256 seeds, max_len 200000: cold "
+          f"{walls[0]:.3f}s (adjacency, unitig view and layout included), "
+          f"warm {walls[1]:.3f}s; {hc.hops} hops; max {st['max']}, N50 "
+          f"{st['n50']}; the longest is a genome substring")
+
+    # one batch of the CLI (the first 512 rows) under torch.profiler, the
+    # caches warm: device operations per hop and the device's busy share,
+    # against the batch's wall under the profiler and without it
+    batch = np.arange(min(512, len(kv)))
+
+    def one_batch():
+        T.assemble_linkless_contigs(g, batch, colour=0, max_len=65536)
+
+    with HopCounter(T) as hc:
+        kinds, us, pwall = device_profile(torch, one_batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_batch()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ops = sum(kinds.values())
+    dev_s = sum(us.values()) / 1e6
+    # ten hop steps on the state of the batch's first hop (each the same
+    # step: the record buffers are written at the same places)
+    hg, st0, bufs, colour, max_len = hc.first
+    kinds1, us1, _w1 = device_profile(torch, lambda: [
+        T._hop_step(hg, st0, bufs, colour, max_len) for _ in range(10)])
+    per_hop = sum(kinds1.values()) / 10
+    if ops == 0 or per_hop == 0:
+        fail("torch.profiler saw no device operation of the hop walker")
+    print(f"hop walker, one batch of 512 seeds under torch.profiler: "
+          f"{hc.hops} hops, {ops} device operations ({json.dumps(kinds)}), "
+          f"{ops / max(hc.hops, 1):.1f} per hop over the batch; a hop step "
+          f"alone {per_hop:.1f} device operations, "
+          f"{sum(us1.values()) / 10:.1f} us of device time; device time "
+          f"{1e3 * dev_s:.3f} ms of the batch, busy {100 * dev_s / pwall:.1f}% "
+          f"of its wall under the profiler ({pwall:.4f}s) and "
+          f"{100 * dev_s / wall:.1f}% of its wall without ({wall:.4f}s)")
+    del g
+
+    # edge inference: --pop (the default) on the cleaned graph, where one
+    # colour leaves nothing to add; then --all on a copy of it with 1 % of
+    # its edge bits cleared, which must restore exactly those bits (--all
+    # finds no other absent edge in a graph built from reads)
+    cut = os.path.join(tmp, "clean_cut.ctx")
+    rng = np.random.default_rng(6)
+    clear = (np.uint8(1) << rng.integers(0, 8, edges.shape, dtype=np.uint8)) \
+        * (rng.random(edges.shape) < 0.08).astype(np.uint8)
+    cut_edges = edges & ~clear
+    ncut = int(np.unpackbits(edges & clear).sum())
+    ctxio.write_ctx(cut, h, keys, covg, cut_edges)
+    for flags, src in (([], cln), (["--all"], cut)):
+        inf = os.path.join(tmp, "inf.ctx")
+        log, wall, nl = lookups_of(["inferedges"] + flags
+                                   + ["-o", inf, "-f", src],
+                                   "inferedges " + " ".join(flags))
+        lookups += nl
+        added = check_inferred(src, inf, K_MAIN)
+        if src == cut:
+            _h, _k2, _c2, inferred = ctxio.read_ctx(inf)
+            if not np.array_equal(inferred, edges):
+                fail("inferedges --all did not restore exactly the edge bits "
+                     "cleared from the cleaned graph")
+        print(f"graph walks: mctx-torch inferedges {' '.join(flags) or '--pop'}"
+              f" of the cleaned graph{'' if src == cln else f' less {ncut} edge bits'}"
+              f": wall {wall:.3f}s; {added} edge bits added, each joining two "
+              f"kmers covered in its colour; lookup launches {nl}; split: "
+              f"{time_split(log)}")
+
+    # a subgraph around a 20 kb slice of the genome
+    sl = genome[2_000_000:2_020_000]
+    sfa = os.path.join(tmp, "slice.fa")
+    with open(sfa, "wb") as fh:
+        fh.write(b">slice\n" + np.frombuffer(b"ACGT", np.uint8)[sl].tobytes()
+                 + b"\n")
+    sub = os.path.join(tmp, "sub.ctx")
+    log, wall, nl = lookups_of(["subgraph", "--seq", sfa, "--dist", "5",
+                                "-o", sub, cln], "subgraph")
+    lookups += nl
+    _h, skeys, scovg, _se = ctxio.read_ctx(sub)
+    sk = skeys[:, 0]
+    j, found = rows_of(kv, sk)
+    if not found.all() or not np.array_equal(covg[j], scovg):
+        fail("the subgraph holds a kmer the cleaned graph does not, or "
+             "changed its coverage")
+    slk = np.unique(canonical_kmers_np(sl[None, :], K_MAIN))
+    in_graph = slk[rows_of(kv, slk)[1]]
+    if not rows_of(sk, in_graph)[1].all():
+        fail("the subgraph misses a kmer of the slice that the cleaned "
+             "graph holds")
+    print(f"graph walks: mctx-torch subgraph --dist 5 of a 20 kb slice wall "
+          f"{wall:.3f}s; {len(sk)} kmers, all in the cleaned graph, holding "
+          f"all {len(in_graph)} slice kmers it has; lookup launches {nl}; "
+          f"split: {time_split(log)}")
+    return lookups
+
+
 def phase_byte_identity(torch, tmp):
     rng = np.random.default_rng(2)
     genome, reads0, _ = genome_and_reads(200_000, 10.0, seed=3)
@@ -1566,6 +1843,7 @@ def phase_byte_identity(torch, tmp):
               f"bytes, CUDA == CPU (wall {got['cuda'][1]:.3f}s on the card, "
               f"{got['cpu'][1]:.3f}s on the CPU)")
     phase_store_cmds(tmp, raw, os.path.join(tmp, "fmt_sam_cuda.ctx"))
+    phase_graph_cmds(tmp, raw, genome)
 
 
 def run_cli_out(argv) -> tuple:
@@ -1628,6 +1906,74 @@ def phase_store_cmds(tmp, two, one):
               f"{got['cpu'][3]:.3f}s on the CPU")
 
 
+def phase_graph_cmds(tmp, two, genome):
+    """5c: contigs, inferedges, subgraph -U and pjoin on the k=31
+    two-colour graph, on the card and on the CPU: the same FASTA and .ctx
+    bytes, and the same decompressed .ctp text with the date fixed.  The
+    link file is written by the port's save_ctp from random links."""
+    import gzip
+    from mccortex_tpu_torch.cli.commands import _load_graph
+    from mccortex_tpu_torch.io import ctp
+    from mccortex_tpu_torch.links import store as lstore
+    from mccortex_tpu_torch.ops.kernels import _build
+
+    rng = np.random.default_rng(5)
+    g = _load_graph(two, "cpu")[1]
+    L = 20_000
+    links = lstore.build_store(
+        g.keys, rng.integers(0, g.n, L), rng.integers(0, 2, L),
+        rng.integers(0, 4, (L, 48)).astype(np.uint8), rng.integers(1, 49, L),
+        rng.integers(0, 2, L), 2)
+    ctp_in = os.path.join(tmp, "links.ctp.gz")
+    ctp.save_ctp(ctp_in, g, links, sample_names=["a", "b"])
+    del g
+    sfa = os.path.join(tmp, "slice5.fa")
+    with open(sfa, "wb") as fh:
+        fh.write(b">slice\n" + np.frombuffer(b"ACGT", np.uint8)[
+            genome[50_000:52_000]].tobytes() + b"\n")
+    cases = (
+        ("contigs -N 64", ["contigs", "-N", "64", "-o", "OUT", two]),
+        ("inferedges", ["inferedges", "-o", "OUT", two]),
+        ("subgraph -U", ["subgraph", "--seq", sfa, "-U", "--dist", "2", "-o",
+                         "OUT", two]),
+        ("pjoin -r", ["pjoin", "-r", "-o", "OUT", two, ctp_in, ctp_in]))
+    strftime = time.strftime
+    time.strftime = lambda fmt, *a: "2026-01-01 00:00:00"
+    try:
+        for name, argv in cases:
+            got = {}
+            for dev in ("cuda", "cpu"):
+                out = os.path.join(tmp, f"g5c_{dev}.out")
+                if os.path.exists(out):
+                    os.remove(out)
+                _build.LAUNCHES.clear()
+                t0 = time.perf_counter()
+                err = run_cli([out if a == "OUT" else a for a in argv]
+                              + ["--device", dev])
+                wall = time.perf_counter() - t0
+                data = open(out, "rb").read()
+                if data[:2] == b"\x1f\x8b":
+                    data = gzip.decompress(data)
+                got[dev] = (data, re.sub(r"[\d.]+s\b", "", err), wall,
+                            dict(_build.LAUNCHES))
+            if got["cuda"][:2] != got["cpu"][:2] or not got["cpu"][0]:
+                fail(f"{name}: the CUDA and CPU outputs differ")
+            if name != "pjoin -r" and got["cuda"][3].get("lookup", 0) <= 0:
+                fail(f"{name} on the card never launched the lookup kernel")
+            extra = ""
+            if name == "inferedges":
+                added = check_inferred(two, out, K_MAIN)
+                extra = (f"{added} edge bits added, each joining two kmers "
+                         f"covered in its colour; ")
+            print(f"graph command {name} (k={K_MAIN}, 2 colours): {extra}"
+                  f"{len(got['cuda'][0])} bytes out, CUDA == CPU; wall "
+                  f"{got['cuda'][2]:.3f}s on the card (launches "
+                  f"{json.dumps(got['cuda'][3])}), {got['cpu'][2]:.3f}s on "
+                  f"the CPU")
+    finally:
+        time.strftime = strftime
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "mccortex_tpu_torch")):
         fail("mccortex_tpu_torch/ is not beside this script: run it from "
@@ -1675,6 +2021,8 @@ def main():
         lookups = phase_graph_path(torch, tmp, card, raw, genome)
         # 4c. the reference-position index of that graph
         phase_kograph(torch, raw, genome, os.path.join(tmp, "genome.fa"))
+        # 4d. contigs, edge inference and a subgraph of the cleaned graph
+        lookups_4d = phase_graph_walks(torch, tmp, card, genome)
         del genome
         torch.cuda.empty_cache()
         # 5. CUDA and CPU outputs byte for byte
@@ -1682,11 +2030,12 @@ def main():
 
     # launches on the main path: the build's kernels from the E. coli build
     # under the default engine, the sort kernels from the build under the
-    # engine that runs them, the lookup kernel from clean + unitigs
+    # engine that runs them, the lookup kernel from clean + unitigs and
+    # from contigs + inferedges + subgraph
     launches = {"frontend": by_engine["lax"]["frontend"],
                 "segreduce": by_engine["lax"]["segreduce"],
                 "mergepath": by_engine["lax"]["mergepath"],
-                "lookup": lookups,
+                "lookup": lookups + lookups_4d,
                 "mergelevel": by_engine["mp"]["mergelevel"],
                 "bitonic_blocksort": by_engine["mp"]["bitonic_blocksort"],
                 "bitonic_tail": by_engine["bitonic"]["bitonic_tail"],
@@ -1705,6 +2054,8 @@ def main():
     # segreduce: one call an epoch (as many as front-end calls) and one a
     # merge (as many as merge-path calls) under lax
     lax = by_engine["lax"]
+    results["lookup"].update(launches_clean_unitigs=lookups,
+                             launches_graph_walks=lookups_4d)
     results["segreduce"].update(launches_epoch=lax["frontend"],
                                 launches_merge=lax["segreduce"]
                                 - lax["frontend"])

@@ -1,7 +1,7 @@
 """mctx-torch subcommands (counterpart of mccortex_tpu/cli/commands.py):
 build (all of `mctx build` on one device), view, check (without -p),
-clean, unitigs.  The store-only commands of
-mccortex_tpu/cli/commands2.py are in commands2.py.
+clean, unitigs, inferedges, contigs (linkless) and pview.  The commands
+of mccortex_tpu/cli/commands2.py are in commands2.py.
 """
 
 from __future__ import annotations
@@ -533,6 +533,221 @@ def cmd_unitigs(argv):
                 fh.close()
     status(f"{len(seqs)} unitigs of {g.n} kmers")
     status(f"time split: {timing.summary()}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# inferedges (ref: src/commands/ctx_infer_edges.c)
+# ---------------------------------------------------------------------------
+
+def cmd_inferedges(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch inferedges")
+    g1 = p.add_mutually_exclusive_group()
+    g1.add_argument("--pop", action="store_true", default=True)
+    g1.add_argument("--all", dest="all_edges", action="store_true")
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("ctx")
+    add_common(p)
+    args = p.parse_args(argv)
+    status, device = apply_common(args, args.out)
+    timing.SPANS.clear()
+    from ..graph import infer_edges as ie
+    h, g = _load_graphs([args.ctx], device)
+    g2 = ie.infer_edges(g, pop_only=not args.all_edges)
+    added = int((g2.edges != g.edges).sum())
+    status(f"inferred edges: {added} edge bytes changed")
+    _save_graph(args.out, h, g2)
+    status(f"time split: {timing.summary()}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# contigs (ref: src/commands/ctx_contigs.c), linkless
+# ---------------------------------------------------------------------------
+
+def cmd_contigs(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch contigs")
+    p.add_argument("-o", "--out", default="-")
+    p.add_argument("-c", "--colour", type=int, default=0)
+    p.add_argument("-N", "--ncontigs", type=int, default=0,
+                   help="pull out at most N contigs "
+                        "[default: 0 = no limit] (ref ctx_contigs.c -N)")
+    g1 = p.add_mutually_exclusive_group()
+    g1.add_argument("-r", "--reseed", dest="reseed", action="store_true",
+                    help="sample seed kmers with replacement")
+    g1.add_argument("-R", "--no-reseed", dest="reseed",
+                    action="store_false",
+                    help="do not reuse seed kmers already in a contig "
+                         "[default, ref ctx_contigs.c:29]")
+    p.set_defaults(reseed=False)
+    p.add_argument("-s", "--seed", action="append", default=[],
+                   help="seed kmers from a FASTA (reads must be kmer "
+                        "length, ref ctx_contigs.c:27)")
+    p.add_argument("-P", "--use-seed-paths", action="store_true",
+                   help="seed contigs from unused links (not yet ported)")
+    p.add_argument("--max-len", type=int, default=65536,
+                   help="max contig extension per direction (kmers)")
+    p.add_argument("--batch", type=int, default=512)
+    p.add_argument("-G", "--genome", type=int, default=0,
+                   help="genome size (bases) for NG50 + confidence table")
+    p.add_argument("-C", "--confid-cumul", type=float, default=-1.0,
+                   help="halt when cumulative confidence < C "
+                        "(ref ctx_contigs.c:32; needs -p)")
+    p.add_argument("-T", "--confid-step", type=float, default=-1.0,
+                   help="halt when single-step confidence < C "
+                        "(ref ctx_contigs.c:33; needs -p)")
+    p.add_argument("-S", "--confid-csv", default=None,
+                   help="save the confidence table as CSV")
+    p.add_argument("-p", "--paths", action="append", default=[],
+                   help=".ctp link files (link-guided assembly; not yet "
+                        "ported)")
+    p.add_argument("--devices", default=None,
+                   help="devices to run on; more than 1 is not yet ported")
+    p.add_argument("ctx")
+    add_common(p)
+    args = p.parse_args(argv)
+    if args.paths:
+        _not_ported(p, "-p/--paths (link-guided contigs)")
+    if args.use_seed_paths:
+        _not_ported(p, "-P/--use-seed-paths")
+    if devices_arg(args) > 1:
+        _not_ported(p, "--devices above 1")
+    status, device = apply_common(args, args.out, args.confid_csv)
+    timing.SPANS.clear()
+    from ..graph import traverse as T
+    from ..utils.stats import contig_stats
+    h, g = _load_graphs([args.ctx], device)
+    n = g.n
+
+    # confidence table from the genome size and the .ctp contig-length
+    # histograms, of which there are none without -p (ref
+    # ctx_contigs.c:225-239)
+    if args.confid_cumul >= 0 or args.confid_step >= 0 or args.confid_csv:
+        if not args.genome:
+            p.error("--confid-* / --confid-csv require --genome")
+        from ..graph import contig_confidence as cc
+        table = cc.conf_table(args.genome, {})
+        if args.confid_csv:
+            with open(args.confid_csv, "w") as fh:
+                cc.print_table(table, fh)
+            status(f"saved confidence table -> {args.confid_csv}")
+        if args.confid_cumul >= 0 or args.confid_step >= 0:
+            p.error("--confid-* need -p link files")
+
+    seed_rows = None
+    if args.seed:
+        seed_rows = _seed_rows(g, args.seed, status)
+
+    out = sys.stdout if args.out == "-" else open(args.out, "w")
+    visited = np.zeros(n, dtype=bool)
+    lengths = []
+    stop_counts = np.zeros(len(T.STATUS_STR), np.int64)
+    ncontig = 0
+    batch = args.batch
+    order = seed_rows if seed_rows is not None else np.arange(n)
+    if args.ncontigs > 0 and seed_rows is None:
+        # ref -N: pull contigs from random kmers
+        order = np.random.default_rng(0).permutation(n)
+    for s0 in range(0, len(order), batch):
+        if args.ncontigs > 0 and ncontig >= args.ncontigs:
+            break
+        seeds = order[s0:s0 + batch]
+        if not args.reseed:
+            seeds = seeds[~visited[seeds]]
+        if len(seeds) == 0:
+            continue
+        contigs, stats = T.assemble_linkless_contigs(
+            g, seeds, colour=args.colour, max_len=args.max_len)
+        for i, c in enumerate(contigs):
+            if args.ncontigs > 0 and ncontig >= args.ncontigs:
+                break
+            if not args.reseed:
+                # a later seed of this batch may already be covered by an
+                # earlier contig (the reference checks seed by seed,
+                # assemble_contigs.c:223)
+                if visited[int(seeds[i])]:
+                    continue
+                with timing.span("mark", device):
+                    _mark_contig_kmers(g, c, visited)
+            with timing.span("write"):
+                out.write(f">contig{ncontig} length={len(c)} "
+                          f"seed={int(seeds[i])}\n{c}\n")
+            lengths.append(len(c))
+            # both directions' halt reasons (ref assemble_stats
+            # stop_causes table)
+            for s_ in np.asarray(stats[i]).reshape(-1):
+                stop_counts[int(s_) % len(T.STATUS_STR)] += 1
+            ncontig += 1
+    if out is not sys.stdout:
+        out.close()
+    st = contig_stats(lengths, genome_size=args.genome or None)
+    status(f"contigs: {st['n']} total={st['total']} max={st['max']} "
+           f"N50={st['n50']} NG50={st['ng50']}")
+    if stop_counts.sum():
+        # halt-reason table (ref assemble_stats.c stop_causes)
+        parts = [f"{T.STATUS_STR[i]}={int(c)}"
+                 for i, c in enumerate(stop_counts) if c]
+        status("contigs halt reasons: " + " ".join(parts))
+    status(f"time split: {timing.summary()}")
+    return 0
+
+
+def _seed_rows(g, paths, status) -> np.ndarray:
+    """Store rows of the kmer-length reads of `paths` (-s/--seed)."""
+    from ..io import seqio
+    from ..ops import kmer as kops
+    from ..ops import sorted as sops
+    found_rows = []
+    nmiss = 0
+    for codes, _, _ in seqio.read_batches(paths):
+        if codes.shape[1] != g.k:
+            raise SystemExit(
+                f"--seed reads must be kmer length ({g.k}): "
+                f"got {codes.shape[1]}")
+        kk = kops.pack_kmers(torch.from_numpy(codes).to(g.device), g.k)
+        keys, _ = kops.canonical(kk, g.k)
+        idx, fnd = sops.lookup(g.keys, keys)
+        fnd = fnd.cpu().numpy()
+        found_rows.append(idx.cpu().numpy()[fnd])
+        nmiss += int((~fnd).sum())
+    if nmiss:
+        status(f"contigs: {nmiss} seed kmers not found in graph")
+    return (np.concatenate(found_rows) if found_rows
+            else np.zeros(0, np.int64))
+
+
+def _mark_contig_kmers(g, contig: str, visited: np.ndarray) -> None:
+    """Mark the store rows of every kmer of `contig` as visited."""
+    from ..constants import CHAR_TO_BASE
+    from ..ops import kmer as kops
+    from ..ops import sorted as sops
+    k = g.k
+    codes = CHAR_TO_BASE[np.frombuffer(contig.encode(), np.uint8)]
+    if len(codes) < k:
+        return
+    kmers, valid = kops.rolling_kmers(
+        torch.from_numpy(codes[None]).to(g.device), k)
+    keys, _ = kops.canonical(kmers, k)
+    idx, found = sops.lookup(g.keys, keys[0])
+    rows = idx[valid[0] & found].cpu().numpy()
+    visited[rows[rows < len(visited)]] = True
+
+
+# ---------------------------------------------------------------------------
+# pview (ref: src/commands/ctx_pview.c)
+# ---------------------------------------------------------------------------
+
+def cmd_pview(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch pview")
+    p.add_argument("ctx")
+    p.add_argument("ctp")
+    args = p.parse_args(argv)
+    import gzip
+    with open(args.ctp, "rb") as probe:
+        is_gz = probe.read(2) == b"\x1f\x8b"
+    opener = gzip.open if is_gz else open
+    with opener(args.ctp, "rt") as fh:
+        sys.stdout.write(fh.read())
     return 0
 
 

@@ -1,10 +1,11 @@
-"""Store-only mctx-torch subcommands (counterpart of part of
-mccortex_tpu/cli/commands2.py): join, dist, sort, index, uniqkmers,
-rmsubstr.  They need nothing beyond the store, the lookup and the `.ctx`
-IO: join rebuilds its store on the device (graph/store.from_records:
-the sort and segreduce kernels on the card) and intersects through the
-batched lookup; dist and sort run on the device; index, uniqkmers and
-rmsubstr are host code.
+"""mctx-torch subcommands of mccortex_tpu/cli/commands2.py: subgraph,
+join, pjoin, dist, sort, index, uniqkmers, rmsubstr.  join rebuilds its
+store on the device (graph/store.from_records: the sort and segreduce
+kernels on the card) and intersects through the batched lookup;
+subgraph probes its seed kmers through the lookup and walks the
+adjacency; dist and sort run on the device; pjoin merges link files
+(io/ctp.py, links/store.py); index, uniqkmers and rmsubstr are host
+code.
 """
 
 from __future__ import annotations
@@ -17,8 +18,43 @@ import sys
 import numpy as np
 import torch
 
-from .commands import _load_graph, _save_graph, intersect_store
+from .commands import _load_graph, _load_graphs, _save_graph, intersect_store
 from .common import add_common, apply_common, check_kmer, parse_size
+
+
+# ---------------------------------------------------------------------------
+# subgraph (ref ctx_subgraph.c)
+# ---------------------------------------------------------------------------
+
+def cmd_subgraph(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch subgraph")
+    p.add_argument("-1", "--seq", action="append", required=True)
+    p.add_argument("-d", "--dist", type=int, default=0,
+                   help="number of kmers to extend by [default: 0]")
+    p.add_argument("-v", "--invert", action="store_true",
+                   help="dump kmers NOT in the subgraph")
+    p.add_argument("-U", "--unitigs", action="store_true",
+                   help="grab whole unitigs containing seed kmers")
+    p.add_argument("-N", "--ncols", type=int, default=None,
+                   help="colours to load at once (ref memory knob; all "
+                        "colours load in one pass here)")
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("ctx", nargs="+")
+    add_common(p)
+    args = p.parse_args(argv)
+    status, device = apply_common(args, args.out)
+    from ..graph import subgraph as sg
+    from ..io import seqio
+    from ..utils import timing
+    timing.SPANS.clear()
+    h, g = _load_graphs(args.ctx, device)
+    batches = [codes for codes, _, _ in seqio.read_batches(args.seq)]
+    g2 = sg.subgraph(g, batches, dist=args.dist, invert=args.invert,
+                     whole_unitigs=args.unitigs)
+    status(f"subgraph: {g.n} -> {g2.n} kmers")
+    _save_graph(args.out, h, g2)
+    status(f"time split: {timing.summary()}")
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +180,62 @@ def _parse_colour_range(spec):
 # ---------------------------------------------------------------------------
 # dist: colour x colour shared-kmer matrix
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# pjoin (ref ctx_pjoin.c): merge link files
+# ---------------------------------------------------------------------------
+
+def cmd_pjoin(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch pjoin")
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("-g", "--graph", default=None,
+                   help="alias for the positional graph argument "
+                        "(ref ctx_pjoin.c -g)")
+    p.add_argument("-c", "--outcols", type=int, default=None,
+                   help="number of colours in the output link file")
+    p.add_argument("-r", "--noredundant", action="store_true",
+                   help="remove redundant links (duplicates merge, "
+                        "strict prefixes drop; ref gpath_subset "
+                        "rmsubstr)")
+    p.add_argument("ctx", nargs="?", default=None)
+    p.add_argument("ctp", nargs="+")
+    add_common(p)
+    args = p.parse_args(argv)
+    status, device = apply_common(args, args.out)
+    import dataclasses
+    from ..io import ctp as ctpio
+    from ..links import store as lstore
+    ctxpath = args.graph or args.ctx
+    if ctxpath is None:
+        p.error("a graph file is required (positional or -g)")
+    if args.graph and args.ctx:
+        # both given: the positional was actually the first .ctp
+        args.ctp.insert(0, args.ctx)
+    h, g = _load_graph(ctxpath, device)
+    links = ctpio.load_link_store(args.ctp, g)
+    if args.noredundant:
+        before = links.nlinks
+        links = lstore.rmsubstr_store(links)
+        status(f"noredundant: {before} -> {links.nlinks} links")
+    if args.outcols is not None:
+        C = links.nseen.shape[1]
+        if args.outcols < C:
+            p.error(f"--outcols {args.outcols} < input colours {C}")
+        if args.outcols > C:
+            ns = torch.zeros((links.nlinks, args.outcols), dtype=torch.int32,
+                             device=links.device)
+            ns[:, :C] = links.nseen
+            links = dataclasses.replace(links, nseen=ns)
+    if links.nseen.shape[1] > len(h.ginfo):
+        # the header names a sample per colour, from the graph (mctx
+        # fails here on an IndexError)
+        p.error(f"{links.nseen.shape[1]} link colours > {len(h.ginfo)} "
+                f"graph colours")
+    ctpio.save_ctp(args.out, g, links,
+                   sample_names=[gi.sample_name for gi in h.ginfo])
+    status(f"merged {len(args.ctp)} link files -> {links.nlinks} links")
+    return 0
+
 
 def cmd_dist(argv):
     p = argparse.ArgumentParser(prog="mctx-torch dist")

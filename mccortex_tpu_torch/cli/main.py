@@ -14,6 +14,14 @@ def _commands() -> dict:
                       "remove tips + low-coverage unitigs"),
             "unitigs": (commands.cmd_unitigs,
                         "dump unitigs as FASTA/GFA/DOT"),
+            "inferedges": (commands.cmd_inferedges,
+                           "infer population edges"),
+            "contigs": (commands.cmd_contigs,
+                        "assemble contigs from the graph (linkless)"),
+            "pview": (commands.cmd_pview, "print a link file as text"),
+            "subgraph": (commands2.cmd_subgraph,
+                         "extract the neighbourhood of seed sequences"),
+            "pjoin": (commands2.cmd_pjoin, "merge link files"),
             "join": (commands2.cmd_join, "merge graphs with colour offsets"),
             "dist": (commands2.cmd_dist,
                      "colour x colour shared-kmer matrix"),

@@ -43,7 +43,9 @@ class DBGraph:
         return self.keys.device
 
 
-def empty(k: int, capacity: int, ncols: int, device=None) -> DBGraph:
+def empty(k: int, capacity: int, ncols: int, device="cuda") -> DBGraph:
+    """An all-sentinel store on `device` (the card unless the caller asks
+    for the CPU)."""
     check_k(k)
     return DBGraph(
         keys=sops.sentinel((capacity,), nwords(k), device),
@@ -63,10 +65,11 @@ def to_host(g: DBGraph):
 
 
 def from_host(keys_u64: np.ndarray, covg: np.ndarray, edges: np.ndarray,
-              k: int, device=None) -> DBGraph:
+              k: int, device="cuda") -> DBGraph:
     """Store from host records that are already sorted and unique, e.g.
     mccortex_tpu.graph.store.to_host or io.ctx.read_ctx output: the
-    state carried across from the JAX package."""
+    state carried across from the JAX package.  It lands on the card
+    unless the caller asks for the CPU."""
     check_k(k)
     keys = np.require(keys_u64, np.uint64, ["C", "W"])
     if keys.ndim != 2 or keys.shape[1] != nwords(k):

@@ -109,10 +109,25 @@ def test_from_host_round_trip_of_jax_graph(lsm_case):
 
 
 def test_empty_and_compacted_store():
-    e = tstore.empty(31, 100, 2)
+    e = tstore.empty(31, 100, 2, "cpu")
     assert e.n == 0 and e.capacity == 100 and (e.keys == -1).all()
     c = tstore.compacted(e, align=16)
     assert c.capacity == 16 and c.ncols == 2 and c.W == 1
+
+
+def test_store_defaults_to_the_card(lsm_case):
+    """store.empty and store.from_host put the store on the card unless
+    the caller asks for the CPU: without CUDA they raise, and never land
+    on the CPU unasked."""
+    _batches_, want = lsm_case
+    calls = (lambda: tstore.from_host(*want, k=31),
+             lambda: tstore.empty(31, 100, 2))
+    for make in calls:
+        if torch.cuda.is_available():
+            assert make().keys.device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                make()
 
 
 def _ctx_records(seed, n, W, C):

@@ -671,3 +671,94 @@ def test_build_per_engine_on_card_matches_cpu(cuda, monkeypatch, engine, k):
         assert _build.LAUNCHES["bitonic_tail"] > 0
         assert _build.LAUNCHES["bitonic_butterfly"] > 0
         assert _build.LAUNCHES["mergepath"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the graph-phase and link-file commands: the card writes the CPU's bytes
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def two_colour_ctx(tmp_path_factory):
+    """A two-colour k=31 graph (the second colour with SNPs), built on the
+    CPU, a FASTA of a slice of its genome, and a two-colour link file of
+    random links written by the port."""
+    from mccortex_tpu_torch.cli.main import main
+    from mccortex_tpu_torch.io import ctp
+    from mccortex_tpu_torch.links import store as ls
+    d = tmp_path_factory.mktemp("graph_cmds_gpu")
+    rng = np.random.default_rng(8)
+    genome = rng.integers(0, 4, 20000).astype(np.uint8)
+    alt = genome.copy()
+    snp = rng.random(len(alt)) < 0.004
+    alt[snp] = (alt[snp] + 1) % 4
+    args = []
+    for name, g in (("a", genome), ("b", alt)):
+        fa = str(d / f"{name}.fa")
+        with open(fa, "w") as fh:
+            for i, s in enumerate(rng.integers(0, len(g) - 150, 1500)):
+                fh.write(f">r{i}\n" + "".join("ACGT"[c] for c in g[s:s + 150])
+                         + "\n")
+        args += ["--sample", name, "--seq", fa]
+    p = {"d": d, "ctx": str(d / "g.ctx"), "seq": str(d / "slice.fa")}
+    assert main(["build", "-k", "31"] + args + [p["ctx"], "--device", "cpu",
+                                                "-q"]) == 0
+    with open(p["seq"], "w") as fh:
+        fh.write(">s\n" + "".join("ACGT"[c] for c in genome[5000:7000]) + "\n")
+    g = _load(p["ctx"], "cpu")
+    L = 300
+    rows = rng.integers(0, g.n, L)
+    bases = rng.integers(0, 4, (L, 40)).astype(np.uint8)
+    links = ls.build_store(g.keys, rows, rng.integers(0, 2, L), bases,
+                           rng.integers(1, 41, L), rng.integers(0, 2, L), 2)
+    p["ctp"] = str(d / "l.ctp.gz")
+    ctp.save_ctp(p["ctp"], g, links, sample_names=["a", "b"])
+    return p
+
+
+def _load(path, device):
+    from mccortex_tpu_torch.cli.commands import _load_graph
+    return _load_graph(path, device)[1]
+
+
+def _text_of(path):
+    import gzip
+    with open(path, "rb") as fh:
+        data = fh.read()
+    return gzip.decompress(data) if data[:2] == b"\x1f\x8b" else data
+
+
+@pytest.mark.parametrize("cmd", [
+    ["contigs", "-o", "OUT"], ["contigs", "-c", "1", "-N", "50", "-o", "OUT"],
+    ["inferedges", "-o", "OUT"], ["inferedges", "--all", "-o", "OUT"],
+    ["subgraph", "--seq", "SEQ", "--dist", "5", "-o", "OUT"],
+    ["subgraph", "--seq", "SEQ", "-U", "--invert", "-o", "OUT"],
+    ["pjoin", "-r", "-c", "2", "-o", "OUT", "CTX", "CTP"],
+    ["pview", "CTX", "CTP"]])
+def test_graph_command_on_card_matches_cpu(cuda, two_colour_ctx, monkeypatch,
+                                           capsys, cmd):
+    """Each new command writes the same bytes (decompressed for .ctp, the
+    date fixed) from the card as from the plain versions on the CPU; the
+    commands that read the store's adjacency launch the lookup kernel."""
+    import time
+    from mccortex_tpu_torch.cli.main import main
+    p = two_colour_ctx
+    monkeypatch.setattr(time, "strftime", lambda fmt, *a: "fixed")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        out = str(p["d"] / f"{cmd[0]}_{len(cmd)}_{dev}.out")
+        argv = [{"OUT": out, "SEQ": p["seq"], "CTX": p["ctx"],
+                 "CTP": p["ctp"]}.get(a, a) for a in cmd]
+        if cmd[0] not in ("pjoin", "pview"):
+            argv.append(p["ctx"])
+        if cmd[0] != "pview":
+            argv += ["--device", dev, "-f"]
+        _build.LAUNCHES.clear()
+        capsys.readouterr()
+        assert main(argv) == 0
+        text = capsys.readouterr().out
+        got[dev] = (_text_of(out) if "OUT" in cmd else text.encode(),
+                    dict(_build.LAUNCHES))
+    assert got["cuda"][0] == got["cpu"][0] and len(got["cpu"][0]) > 0
+    if cmd[0] in ("contigs", "inferedges", "subgraph"):
+        assert got["cuda"][1].get("lookup", 0) > 0
+        assert not got["cpu"][1].get("lookup", 0)

@@ -145,6 +145,6 @@ def test_pointer_doubling_matches_jax(V, seed):
 
 
 def test_empty_graph_has_no_unitigs():
-    g = tstore.empty(31, 1, 1)
+    g = tstore.empty(31, 1, 1, "cpu")
     assert tu.extract_unitigs(g) == []
     assert tug.unitig_links(g, []) == []
