@@ -85,6 +85,18 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    --all restores exactly the bits cleared; the subgraph is a subset of
    the graph holding every slice kmer the graph has.  One batch of the hop walker runs under torch.profiler:
    device operations per hop and the device's busy share;
+4e. links on that cleaned graph, through the CLI on the card: `thread
+   --no-gap-fill` of all the reads, `thread` (gap filling) of the first
+   131,072 (the recipe of scripts/scale_test.py), `check -p` of both
+   (0 bad links), `contigs -p` over the whole graph with the first's
+   links (--batch 512, --max-len 65536, --no-reseed); each must launch
+   the lookup kernel.  Checked in numpy: the contigs as in 4d, and 1000
+   links of each file walked from their kmer along the graph's edge
+   bytes, every junction an existing branch at a fork, all consumed
+   before a dead end.  `assemble_contigs_primed` of 256 seeds at max_len
+   200,000 with the gap-filled links, cold and warm; one gap-fill batch
+   and one `contigs -p` batch under torch.profiler: walker steps, device
+   operations a step, the device's busy share;
 5. byte identity: a 2-colour build of a 200 kb genome at k=31 and k=63
    (k=31 under every sort engine), colour a's reads as SAM, BAM and CRAM
    (each must give the FASTQ build's bytes), a --graph + --seq2 -p
@@ -98,7 +110,12 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    link file the port's save_ctp wrote) on that 2-colour graph, on the
    card and on the CPU: the same FASTA and .ctx bytes and the same
    decompressed .ctp text (the date fixed); the inferred edges held to
-   the numpy rule as in 4d.
+   the numpy rule as in 4d;
+5d. on the cleaned 2-colour graph: `thread` (default, --no-gap-fill, -W,
+   -p with -0) of 4096 reads of colour a, `contigs -p` (-N 64; -P from
+   the links of 64 reads; -C 0.5 -G 200000) and `check -p`, on the card
+   and on the CPU: the same decompressed .ctp text (the date fixed, only
+   the generator masked), FASTA bytes and status lines.
 
 Prints a JSON line of per-kernel results (segreduce's launches split into
 the epochs' and the merges'), then `{"ok": true, "device":
@@ -121,6 +138,7 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 K_MAIN = 31
 GENOME_BP = 4_600_000     # phase 4's genome, E. coli-sized
 MERGE_ITEM = 1 << 22      # records a side of phase 3's LSM merge
@@ -140,6 +158,10 @@ CHAR_CODES[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def elapsed(phase: str):
+    print(f"elapsed: {phase} done at {time.perf_counter() - T0:.1f}s")
 
 
 def time_ms(torch, fn, reps: int = 20) -> float:
@@ -559,17 +581,30 @@ def phase_sorts(torch, results, shapes):
                                                     tile=2 * T))
         plain_t = time_ms(torch, lambda: bitonic.tail_plain(bf, nk, 2 * T,
                                                             False, T), 5)
+        # library: one torch.sort over the same spans' 64-bit keys, order
+        # only (the stage alternates direction from one 2-tile block to
+        # the next, torch.sort sorts every span ascending): the tail's
+        # spans of a tile, and the butterfly's pairs j apart as the
+        # (M/2j, 2, j) view sorted along its pair axis
+        lib_t = lib_b = None
+        if lib_ok:
+            kt, kb = keys64(bf).view(-1, T), keys64(alt).view(-1, 2, T)
+            lib_t = time_ms(torch, lambda: torch.sort(kt, dim=1), 5)
+            lib_b = time_ms(torch, lambda: torch.sort(kb, dim=1), 5)
         print(f"butterfly {tag} j={T}: exact; kernel {ms_b:.4f} ms, plain "
-              f"{plain_b:.4f} ms")
+              f"{plain_b:.4f} ms, torch.sort of the (M/2j, 2, j) keys "
+              f"{lib_b if lib_b is None else round(lib_b, 4)} ms")
         print(f"tail {tag} k={2 * T}: exact; kernel {ms_t:.4f} ms, plain "
               f"{plain_t:.4f} ms; over spans of two tiles (the butterfly of "
-              f"distance {T} with it) {ms_t2:.4f} ms")
+              f"distance {T} with it) {ms_t2:.4f} ms; torch.sort of the "
+              f"spans' keys {lib_t if lib_t is None else round(lib_t, 4)} ms")
         if lib_ok:
             results["bitonic_butterfly"] = row(
-                err_b, ms_b, plain_b, 2 * nbytes_of(x), M // 2 * cmp_ops(nk))
+                err_b, ms_b, plain_b, 2 * nbytes_of(x), M // 2 * cmp_ops(nk),
+                lib_b)
             results["bitonic_tail"] = row(
                 err_t, ms_t, plain_t, 2 * nbytes_of(x),
-                M // 2 * logT * cmp_ops(nk))
+                M // 2 * logT * cmp_ops(nk), lib_t)
 
         # one merge level over the sorted tiles, by the kernel the port
         # takes for it and by the other one
@@ -1596,7 +1631,7 @@ def lookups_of(argv, label) -> tuple:
     return log, wall, launched["lookup"]
 
 
-def phase_graph_walks(torch, tmp, card, genome) -> int:
+def phase_graph_walks(torch, tmp, card, genome) -> tuple:
     """4d: linkless contigs, edge inference and a subgraph on the cleaned
     E. coli graph of phase 4b, through the CLI on the card, each held to
     numpy checks; assemble_linkless_contigs with 256 seeds, cold and
@@ -1617,6 +1652,7 @@ def phase_graph_walks(torch, tmp, card, genome) -> int:
     lookups += nl
     st = check_contigs(read_fasta_seqs(fa), kv, genome, K_MAIN,
                        "mctx-torch contigs")
+    linkless_n50 = st["n50"]
     halts = re.search(r"contigs halt reasons: (.*)", log)
     print(f"graph walks on {card}: mctx-torch contigs of the {len(kv)}-kmer "
           f"cleaned graph (--batch 512, --max-len 65536, --no-reseed) wall "
@@ -1737,7 +1773,7 @@ def phase_graph_walks(torch, tmp, card, genome) -> int:
           f"{wall:.3f}s; {len(sk)} kmers, all in the cleaned graph, holding "
           f"all {len(in_graph)} slice kmers it has; lookup launches {nl}; "
           f"split: {time_split(log)}")
-    return lookups
+    return lookups, linkless_n50
 
 
 def phase_byte_identity(torch, tmp):
@@ -1844,6 +1880,7 @@ def phase_byte_identity(torch, tmp):
               f"{got['cpu'][1]:.3f}s on the CPU)")
     phase_store_cmds(tmp, raw, os.path.join(tmp, "fmt_sam_cuda.ctx"))
     phase_graph_cmds(tmp, raw, genome)
+    phase_link_cmds(tmp, raw, genome)
 
 
 def run_cli_out(argv) -> tuple:
@@ -1974,6 +2011,345 @@ def phase_graph_cmds(tmp, two, genome):
         time.strftime = strftime
 
 
+class StepCounter:
+    """Counts the linked walker's steps (links/walk._linked_step calls)
+    and the linked contig batches (assemble_contigs_primed calls, summing
+    their dropped pickups)."""
+
+    def __init__(self, lwalk):
+        self.lwalk, self.steps, self.batches, self.drops = lwalk, 0, 0, 0
+        self._step = lwalk._linked_step
+        self._primed = lwalk.assemble_contigs_primed
+
+    def __enter__(self):
+        def step(*a, **kw):
+            self.steps += 1
+            return self._step(*a, **kw)
+
+        def primed(*a, **kw):
+            self.batches += 1
+            out = self._primed(*a, **kw)
+            if len(out) == 3:
+                self.drops += out[2]["n_drop"]
+            return out
+
+        self.lwalk._linked_step = step
+        self.lwalk.assemble_contigs_primed = primed
+        return self
+
+    def __exit__(self, *exc):
+        self.lwalk._linked_step = self._step
+        self.lwalk.assemble_contigs_primed = self._primed
+
+
+def parse_ctp_links(path: str):
+    """Every link of a .ctp file, parsed in Python: (kmer strings,
+    orientation 0/1, junction strings)."""
+    import gzip
+    lines = gzip.open(path, "rt").read().split("\n")
+    i = lines.index("}") + 1        # the pretty-printed header's end
+    kmers, ors, juncs = [], [], []
+    left, kmer = 0, None
+    for line in lines[i:]:
+        if not line or line[0] == "#":
+            continue
+        parts = line.split()
+        if left == 0:
+            kmer, left = parts[0], int(parts[1])
+            continue
+        kmers.append(kmer)
+        ors.append(0 if parts[0] == "F" else 1)
+        juncs.append(parts[3])
+        left -= 1
+    return kmers, np.array(ors, np.uint8), juncs
+
+
+def check_link_walks(path: str, keys: np.ndarray, edges: np.ndarray, k: int,
+                     n: int = 1000, max_steps: int = 100_000) -> dict:
+    """n links of the file drawn with a fixed seed, each walked in numpy
+    from its kmer in its orientation along the graph's edge bytes: at a
+    fork the link's next junction base must be an existing out-edge, and
+    the walk must use every junction before it reaches a dead end
+    (independent of the port).  Returns counts."""
+    kmers, ors, juncs = parse_ctp_links(path)
+    if not kmers:
+        fail(f"{path}: no links")
+    pick = np.random.default_rng(9).choice(len(kmers), min(n, len(kmers)),
+                                           replace=False)
+    codes = [codes_of(kmers[i].encode()) for i in pick]
+    key = np.array([sum(int(c) << (2 * (k - 1 - j)) for j, c in
+                        enumerate(cs)) for cs in codes], np.uint64)
+    o = ors[pick].astype(bool)
+    okm = np.where(o, revcomp_np(key, k), key)
+    row, found = rows_of(keys, key)
+    if not found.all():
+        fail("a link's kmer is not in the graph")
+    nj = np.array([len(juncs[i]) for i in pick])
+    J = np.zeros((len(pick), nj.max()), np.uint8)
+    for r, i in enumerate(pick):
+        J[r, :nj[r]] = codes_of(juncs[i].encode())
+    ar = np.arange(len(pick))
+    pos = np.zeros(len(pick), np.int64)
+    ok = np.ones(len(pick), bool)
+    mask = np.uint64((1 << 2 * k) - 1)
+    pop = np.array([bin(x).count("1") for x in range(16)])
+    low = np.array([0, 0, 1, 0, 2, 0, 1, 0, 3, 0, 1, 0, 2, 0, 1, 0])
+    steps = 0
+    for steps in range(max_steps):
+        live = ok & (pos < nj)
+        if not live.any():
+            break
+        nib = (edges[row, 0] >> (4 * o).astype(np.uint8)) & 15
+        cnt = pop[nib]
+        fork = live & (cnt > 1)
+        jb = J[ar, np.minimum(pos, J.shape[1] - 1)]
+        ok &= ~(live & (cnt == 0))                        # dead end
+        ok &= ~(fork & (((nib >> jb) & 1) == 0))          # no such branch
+        adv = live & ok
+        base = np.where(fork, jb, low[nib]).astype(np.uint64)
+        nxt = ((okm << np.uint64(2)) | base) & mask
+        canon = np.minimum(nxt, revcomp_np(nxt, k))
+        r2, f2 = rows_of(keys, canon)
+        ok &= ~(adv & ~f2)
+        adv &= f2
+        okm = np.where(adv, nxt, okm)
+        row = np.where(adv, r2, row)
+        o = np.where(adv, nxt != canon, o)
+        pos += adv & fork
+    bad = ~(ok & (pos >= nj))
+    if bad.any():
+        fail(f"{int(bad.sum())} of {len(pick)} links are not walkable in "
+             f"numpy (first: {kmers[pick[np.argmax(bad)]]} "
+             f"{'FR'[ors[pick[np.argmax(bad)]]]} "
+             f"{juncs[pick[np.argmax(bad)]]})")
+    return dict(n=len(pick), links=len(kmers), junctions=int(nj.sum()),
+                steps=steps)
+
+
+def thread_counts(log: str) -> tuple:
+    m = re.search(r"threaded (\d+) reads \+ 0 pairs -> (\d+) links", log)
+    if not m:
+        fail("thread printed no 'threaded N reads' line")
+    return int(m.group(1)), int(m.group(2))
+
+
+def gap_counts(log: str) -> str:
+    m = re.search(r"\[CorrectAln\] (.*)", log)
+    return m.group(1) if m else "no gaps"
+
+
+def phase_links(torch, tmp, card, genome, reads, fq, linkless_n50) -> int:
+    """4e: links on the cleaned E. coli graph of phase 4b, through the CLI
+    on the card: thread --no-gap-fill over all the reads, thread with gap
+    filling over the first 131,072, check -p of both, contigs -p with the
+    first's links over the whole graph; assemble_contigs_primed of 256
+    seeds at max_len 200,000 with the gap-filled links, cold and warm; a
+    gap-fill batch and a contigs -p batch under torch.profiler.  Returns
+    the lookup kernel's launches."""
+    from mccortex_tpu_torch.align import correct as acorrect
+    from mccortex_tpu_torch.graph import store as gstore
+    from mccortex_tpu_torch.io import ctp
+    from mccortex_tpu_torch.io import ctx as ctxio
+    from mccortex_tpu_torch.links import walk as lwalk
+
+    cln = os.path.join(tmp, "clean.ctx")
+    h, keys, covg, edges = ctxio.read_ctx(cln)
+    kv = keys[:, 0]
+    lookups = 0
+    all_ctp = os.path.join(tmp, "links_all.ctp.gz")
+    gap_ctp = os.path.join(tmp, "links_gap.ctp.gz")
+    fq131 = os.path.join(tmp, "reads131k.fq")
+    write_fastq(fq131, reads[:131_072])
+    for label, argv, out in (
+            ("thread --no-gap-fill", ["--no-gap-fill", "--seq", fq], all_ctp),
+            ("thread", ["--seq", fq131], gap_ctp)):
+        with StepCounter(lwalk) as sc:
+            log, wall, nl = lookups_of(["thread"] + argv + ["-o", out, cln],
+                                       label)
+        lookups += nl
+        nreads, nlinks = thread_counts(log)
+        print(f"links on {card}: mctx-torch {label} of {nreads} reads over "
+              f"the {len(kv)}-kmer cleaned graph: wall {wall:.3f}s "
+              f"({nreads / wall:.0f} reads/s), {nlinks} links written, "
+              f"{sc.steps} linked walker steps; gap fill: "
+              f"{gap_counts(log)}; lookup launches {nl}; split: "
+              f"{time_split(log)}")
+        if nlinks <= 0:
+            fail(f"{label} wrote no links")
+    for out in (all_ctp, gap_ctp):
+        log, wall, nl = lookups_of(["check", "-p", out, cln], "check -p")
+        lookups += nl
+        m = re.search(r"links OK \((\d+) links, (\d+) colour-walks", log)
+        if not m:
+            fail(f"check -p {out} did not report its links OK")
+        walks = check_link_walks(out, kv, edges, K_MAIN)
+        print(f"links: mctx-torch check -p {os.path.basename(out)}: wall "
+              f"{wall:.3f}s, {m.group(1)} links, {m.group(2)} colour-walks "
+              f"verified, 0 bad; lookup launches {nl}; numpy: {walks['n']} "
+              f"of {walks['links']} links drawn walk every one of their "
+              f"{walks['junctions']} junctions along existing edges "
+              f"({walks['steps']} steps)")
+
+    fa = os.path.join(tmp, "contigs_linked.fa")
+    with StepCounter(lwalk) as sc:
+        log, wall, nl = lookups_of(
+            ["contigs", "-p", all_ctp, "--batch", "512", "--max-len",
+             "65536", "--no-reseed", "-o", fa, cln], "contigs -p")
+    lookups += nl
+    st = check_contigs(read_fasta_seqs(fa), kv, genome, K_MAIN,
+                       "mctx-torch contigs -p")
+    halts = re.search(r"contigs halt reasons: (.*)", log)
+    if not halts:
+        fail("contigs -p printed no halt-reason line")
+    print(f"links: mctx-torch contigs -p of the whole cleaned graph "
+          f"(--batch 512, --max-len 65536, --no-reseed) wall {wall:.3f}s; "
+          f"{sc.batches} batches walked, {sc.steps} linked walker steps, "
+          f"{st['n']} contigs; total {st['total']} bp, max {st['max']}, "
+          f"N50 {st['n50']} (linkless N50 {linkless_n50}); dropped pickups "
+          f"{sc.drops}; lookup launches {nl}; halt reasons: "
+          f"{halts.group(1)}; split: {time_split(log)}")
+
+    g = gstore.from_host(keys, covg, edges, K_MAIN, "cuda")
+    gap_links = ctp.load_link_store([gap_ctp], g)
+    seeds = np.random.default_rng(0).integers(0, len(kv), 256)
+    walls = []
+    for turn in ("cold", "warm"):
+        with StepCounter(lwalk) as sc:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            contigs, stops = lwalk.assemble_contigs_primed(
+                g, gap_links, seeds, colour=0, max_len=200_000,
+                missing_check=True)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    st = check_contigs([c.encode() for c in contigs], kv, genome, K_MAIN,
+                       "assemble_contigs_primed")
+    print(f"assemble_contigs_primed, 256 seeds, max_len 200000, gap-filled "
+          f"links: cold {walls[0]:.3f}s (adjacency, hop info and layout "
+          f"included), warm {walls[1]:.3f}s; {sc.steps} steps; max "
+          f"{st['max']}, N50 {st['n50']}; the longest is a genome "
+          f"substring; halts {np.bincount(stops.reshape(-1), minlength=13)}")
+
+    # one gap-fill batch (2048 reads, no links, as thread's default) and
+    # one contigs -p batch (512 seeds) under torch.profiler, caches warm
+    batch = reads[:2048]
+    all_links = ctp.load_link_store([all_ctp], g)
+    for label, fn, warm in (
+            ("gap-fill batch of 2048 reads",
+             lambda: acorrect.correct_batch(g, None, batch), None),
+            ("contigs -p batch of 512 seeds",
+             lambda: lwalk.assemble_contigs_primed(
+                 g, all_links, np.arange(512), colour=0, max_len=65536,
+                 missing_check=True),
+             lambda: lwalk.get_hopinfo(g, all_links))):
+        (warm or fn)()
+        with StepCounter(lwalk) as sc:
+            kinds, us, pwall = device_profile(torch, fn)
+        ops = sum(kinds.values())
+        dev_s = sum(us.values()) / 1e6
+        if ops == 0 or sc.steps == 0:
+            fail(f"torch.profiler saw no device operation of the {label}")
+        print(f"linked walker, one {label} under torch.profiler: "
+              f"{sc.steps} walker steps, {ops} device operations "
+              f"({json.dumps(kinds)}), {ops / sc.steps:.1f} per step; device "
+              f"time {1e3 * dev_s:.3f} ms, busy {100 * dev_s / pwall:.1f}% of "
+              f"its wall under the profiler ({pwall:.4f}s)")
+    del g, gap_links, all_links
+    return lookups
+
+
+def phase_link_cmds(tmp, two, genome):
+    """5d: thread (default, --no-gap-fill, -W, -p with -0) of the first
+    4096 reads of colour a against the cleaned 2-colour graph of phase 5,
+    then contigs -p (-N 64 from a batch of 64 seeds; with -P, from the
+    links of 64 reads; with -C -G) and check -p, on the card and on the CPU: the same decompressed
+    .ctp text (the date fixed, only the generator masked), the same FASTA
+    bytes and status."""
+    import gzip
+    from mccortex_tpu_torch.ops.kernels import _build
+
+    cln = os.path.join(tmp, "cuda_c.ctx")
+    # colour a's reads: thread follows the edges of colour 0, where the
+    # links go, so reads of colour b would thread through its SNP kmers
+    # into links that are not walkable in colour 0 (the reference's rule)
+    fq = os.path.join(tmp, "c0_4k.fq")
+    with open(os.path.join(tmp, "c0.fq"), "rb") as src, open(fq, "wb") as dst:
+        for _ in range(4 * 4096):
+            dst.write(src.readline())
+    L = {n: os.path.join(tmp, f"l5_{n}.ctp.gz")
+         for n in ("nogap", "default", "small")}
+    cases = (  # name, argv with OUT for the output, files it needs
+        ("thread --no-gap-fill", ["thread", "--no-gap-fill", "--seq", fq,
+                                  "-o", "OUT", cln], L["nogap"]),
+        ("thread", ["thread", "--seq", fq, "-o", "OUT", cln], L["default"]),
+        ("thread -W", ["thread", "-W", "--seq", fq, "-o", "OUT", cln], None),
+        ("thread -p -0", ["thread", "-p", L["nogap"], "-0", "--seq", fq,
+                          "-o", "OUT", cln], None),
+        ("thread 64 reads", ["thread", "--seq", fq + ".64", "-o", "OUT",
+                             cln], L["small"]),
+        ("contigs -p", ["contigs", "-p", L["default"], "-N", "64",
+                        "--batch", "64", "--max-len", "1000", "-o", "OUT",
+                        cln], None),
+        ("contigs -p -P", ["contigs", "-p", L["small"], "-P", "-N", "64",
+                           "--batch", "64", "--max-len", "300", "-o", "OUT",
+                           cln], None),
+        ("contigs -p -C 0.5 -G 200000",
+         ["contigs", "-p", L["default"], "-C", "0.5", "-G", "200000", "-N",
+          "64", "--batch", "64", "--max-len", "1000", "-o", "OUT", cln],
+         None),
+        ("check -p", ["check", "-p", L["default"], cln], None))
+    with open(fq, "rb") as src, open(fq + ".64", "wb") as dst:
+        for _ in range(4 * 64):
+            dst.write(src.readline())
+    strftime = time.strftime
+    time.strftime = lambda fmt, *a: "2026-01-01 00:00:00"
+    try:
+        for name, argv, keep in cases:
+            got = {}
+            for dev in ("cuda", "cpu"):
+                # one output path on both devices: a .ctp header records
+                # the command line
+                out = os.path.join(tmp, "l5_out")
+                if os.path.exists(out):
+                    os.remove(out)
+                _build.LAUNCHES.clear()
+                t0 = time.perf_counter()
+                err = run_cli([out if a == "OUT" else a for a in argv]
+                              + ["--device", dev])
+                wall = time.perf_counter() - t0
+                data = open(out, "rb").read() if "OUT" in argv else b""
+                if data[:2] == b"\x1f\x8b":
+                    data = gzip.decompress(data)
+                    data = re.sub(rb'"generator": "[^"]*"', b"", data)
+                    if keep and dev == "cuda":
+                        os.replace(out, keep)
+                got[dev] = (data, re.sub(r"[\d.]+s\b", "", re.sub(
+                    r"time split: .*", "", err)), wall,
+                    dict(_build.LAUNCHES))
+            if got["cuda"][:2] != got["cpu"][:2]:
+                fail(f"{name}: the CUDA and CPU outputs differ")
+            if got["cuda"][3].get("lookup", 0) <= 0:
+                fail(f"{name} on the card never launched the lookup kernel")
+            extra = ""
+            if name.startswith("thread"):
+                nreads, nlinks = thread_counts(got["cpu"][1])
+                extra = f"{nreads} reads -> {nlinks} links; "
+            elif name.startswith("contigs"):
+                extra = (f"{got['cpu'][0].count(b'>')} contigs"
+                         f"{', lf.conf headers' if b'lf.conf' in got['cpu'][0] else ''}"
+                         f"{', seeded from unused links' if b'seedpath' in got['cpu'][0] else ''}; ")
+            elif "links OK" not in got["cpu"][1]:
+                fail("check -p did not report the links OK")
+            print(f"link command {name} (k={K_MAIN}, 2 colours, cleaned): "
+                  f"{extra}{len(got['cuda'][0])} bytes out, CUDA == CPU; "
+                  f"wall {got['cuda'][2]:.3f}s on the card (launches "
+                  f"{json.dumps(got['cuda'][3])}), {got['cpu'][2]:.3f}s on "
+                  f"the CPU")
+    finally:
+        time.strftime = strftime
+
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "mccortex_tpu_torch")):
         fail("mccortex_tpu_torch/ is not beside this script: run it from "
@@ -2011,31 +2387,42 @@ def main():
     del shapes
     torch.cuda.empty_cache()
     phase_lookup(torch, results)
+    elapsed("3 kernels")
 
     with tempfile.TemporaryDirectory() as tmp:
         # 4. the build path at real size, under every sort engine
         by_engine, genome, reads, raw = phase_main_path(torch, tmp, card)
         phase_paired(torch, tmp, card, genome, reads)
-        del reads
+        elapsed("4 build")
         # 4b. clean and unitigs on its graph
         lookups = phase_graph_path(torch, tmp, card, raw, genome)
+        elapsed("4b")
         # 4c. the reference-position index of that graph
         phase_kograph(torch, raw, genome, os.path.join(tmp, "genome.fa"))
+        elapsed("4c")
         # 4d. contigs, edge inference and a subgraph of the cleaned graph
-        lookups_4d = phase_graph_walks(torch, tmp, card, genome)
-        del genome
+        lookups_4d, linkless_n50 = phase_graph_walks(torch, tmp, card,
+                                                     genome)
+        elapsed("4d")
+        # 4e. link threading and linked contigs on the cleaned graph
+        lookups_4e = phase_links(torch, tmp, card, genome, reads,
+                                 os.path.join(tmp, "reads.fq"), linkless_n50)
+        elapsed("4e")
+        del genome, reads
         torch.cuda.empty_cache()
         # 5. CUDA and CPU outputs byte for byte
         phase_byte_identity(torch, tmp)
+        elapsed("5")
 
     # launches on the main path: the build's kernels from the E. coli build
     # under the default engine, the sort kernels from the build under the
-    # engine that runs them, the lookup kernel from clean + unitigs and
-    # from contigs + inferedges + subgraph
+    # engine that runs them, the lookup kernel from clean + unitigs, from
+    # contigs + inferedges + subgraph and from thread + check -p +
+    # contigs -p
     launches = {"frontend": by_engine["lax"]["frontend"],
                 "segreduce": by_engine["lax"]["segreduce"],
                 "mergepath": by_engine["lax"]["mergepath"],
-                "lookup": lookups + lookups_4d,
+                "lookup": lookups + lookups_4d + lookups_4e,
                 "mergelevel": by_engine["mp"]["mergelevel"],
                 "bitonic_blocksort": by_engine["mp"]["bitonic_blocksort"],
                 "bitonic_tail": by_engine["bitonic"]["bitonic_tail"],
@@ -2055,7 +2442,8 @@ def main():
     # merge (as many as merge-path calls) under lax
     lax = by_engine["lax"]
     results["lookup"].update(launches_clean_unitigs=lookups,
-                             launches_graph_walks=lookups_4d)
+                             launches_graph_walks=lookups_4d,
+                             launches_links=lookups_4e)
     results["segreduce"].update(launches_epoch=lax["frontend"],
                                 launches_merge=lax["segreduce"]
                                 - lax["frontend"])

@@ -1,7 +1,8 @@
 """mctx-torch subcommands (counterpart of mccortex_tpu/cli/commands.py):
-build (all of `mctx build` on one device), view, check (without -p),
-clean, unitigs, inferedges, contigs (linkless) and pview.  The commands
-of mccortex_tpu/cli/commands2.py are in commands2.py.
+build (all of `mctx build` on one device), view, check (with -p),
+clean, unitigs, inferedges, contigs (linkless and linked), pview and
+thread (single-end).  The commands of mccortex_tpu/cli/commands2.py are
+in commands2.py.
 """
 
 from __future__ import annotations
@@ -336,13 +337,13 @@ def check_graph_arrays(k, keys, covg, edges, device) -> list:
 def cmd_check(argv):
     p = argparse.ArgumentParser(prog="mctx-torch check")
     p.add_argument("-p", "--paths", action="append", default=[],
-                   help="link files to verify against the graph (not yet "
-                        "ported)")
+                   help="link files to verify against the graph: every "
+                        "link must be walkable in each colour it is seen "
+                        "in (ref ctx_health_check.c: "
+                        "gpath_checks_all_paths)")
     p.add_argument("ctx")
     add_common(p)
     args = p.parse_args(argv)
-    if args.paths:
-        _not_ported(p, "-p/--paths")
     status, device = apply_common(args)
     from ..io import ctx as ctxio
     h, keys, covg, edges = ctxio.read_ctx(args.ctx)
@@ -352,6 +353,19 @@ def cmd_check(argv):
     if errs:
         return 1
     status(f"{args.ctx}: OK ({len(keys)} kmers, {h.ncols} colours)")
+    if args.paths:
+        from ..io import ctp as ctpio
+        from ..links import check as lcheck
+        _h, g = _load_graph(args.ctx, device)
+        links = ctpio.load_link_store(args.paths, g)
+        nchecked, nbad, bad_ids = lcheck.check_links(g, links)
+        if nbad:
+            print(f"check: {nbad}/{nchecked} link walks FAILED "
+                  f"(link ids {bad_ids[:10].tolist()}...)",
+                  file=sys.stderr)
+            return 1
+        status(f"links OK ({links.nlinks} links, "
+               f"{nchecked} colour-walks verified)")
     return 0
 
 
@@ -562,7 +576,7 @@ def cmd_inferedges(argv):
 
 
 # ---------------------------------------------------------------------------
-# contigs (ref: src/commands/ctx_contigs.c), linkless
+# contigs (ref: src/commands/ctx_contigs.c), linkless or linked
 # ---------------------------------------------------------------------------
 
 def cmd_contigs(argv):
@@ -584,7 +598,8 @@ def cmd_contigs(argv):
                    help="seed kmers from a FASTA (reads must be kmer "
                         "length, ref ctx_contigs.c:27)")
     p.add_argument("-P", "--use-seed-paths", action="store_true",
-                   help="seed contigs from unused links (not yet ported)")
+                   help="seed contigs from unused links "
+                        "(ref ctx_contigs.c:30; with -p)")
     p.add_argument("--max-len", type=int, default=65536,
                    help="max contig extension per direction (kmers)")
     p.add_argument("--batch", type=int, default=512)
@@ -599,17 +614,16 @@ def cmd_contigs(argv):
     p.add_argument("-S", "--confid-csv", default=None,
                    help="save the confidence table as CSV")
     p.add_argument("-p", "--paths", action="append", default=[],
-                   help=".ctp link files (link-guided assembly; not yet "
-                        "ported)")
+                   help=".ctp link files (link-guided assembly)")
+    p.add_argument("-M", "--no-missing-check", dest="missing_check",
+                   action="store_false", default=True,
+                   help="disable the missing-link-information halt "
+                        "(ref contigs default: check enabled)")
     p.add_argument("--devices", default=None,
                    help="devices to run on; more than 1 is not yet ported")
     p.add_argument("ctx")
     add_common(p)
     args = p.parse_args(argv)
-    if args.paths:
-        _not_ported(p, "-p/--paths (link-guided contigs)")
-    if args.use_seed_paths:
-        _not_ported(p, "-P/--use-seed-paths")
     if devices_arg(args) > 1:
         _not_ported(p, "--devices above 1")
     status, device = apply_common(args, args.out, args.confid_csv)
@@ -619,20 +633,35 @@ def cmd_contigs(argv):
     h, g = _load_graphs([args.ctx], device)
     n = g.n
 
+    links = None
+    if args.paths:
+        from ..io import ctp as ctpio
+        with timing.span("links", device):
+            links = ctpio.load_link_store(args.paths, g)
+
     # confidence table from the genome size and the .ctp contig-length
-    # histograms, of which there are none without -p (ref
-    # ctx_contigs.c:225-239)
+    # histograms (ref ctx_contigs.c:225-239 conf_table_update_hist)
+    conf_arr = None
     if args.confid_cumul >= 0 or args.confid_step >= 0 or args.confid_csv:
         if not args.genome:
             p.error("--confid-* / --confid-csv require --genome")
         from ..graph import contig_confidence as cc
-        table = cc.conf_table(args.genome, {})
+        from ..io import ctp as ctpio
+        hist = {}
+        for pth in args.paths:
+            ph = ctpio.load_ctp_header(pth)
+            for lng, cnt in ctpio.contig_hist_from_header(
+                    ph, args.colour).items():
+                hist[lng] = hist.get(lng, 0) + cnt
+        table = cc.conf_table(args.genome, hist)
         if args.confid_csv:
             with open(args.confid_csv, "w") as fh:
                 cc.print_table(table, fh)
             status(f"saved confidence table -> {args.confid_csv}")
-        if args.confid_cumul >= 0 or args.confid_step >= 0:
+        if links is None and (args.confid_cumul >= 0 or
+                              args.confid_step >= 0):
             p.error("--confid-* need -p link files")
+        conf_arr = torch.from_numpy(table.astype(np.float32)).to(device)
 
     seed_rows = None
     if args.seed:
@@ -648,6 +677,10 @@ def cmd_contigs(argv):
     if args.ncontigs > 0 and seed_rows is None:
         # ref -N: pull contigs from random kmers
         order = np.random.default_rng(0).permutation(n)
+    used_links = (np.zeros(links.nlinks, bool)
+                  if links is not None else None)
+    conf_kw = dict(conf_table=conf_arr, min_step=args.confid_step,
+                   min_cumul=args.confid_cumul)
     for s0 in range(0, len(order), batch):
         if args.ncontigs > 0 and ncontig >= args.ncontigs:
             break
@@ -656,8 +689,19 @@ def cmd_contigs(argv):
             seeds = seeds[~visited[seeds]]
         if len(seeds) == 0:
             continue
-        contigs, stats = T.assemble_linkless_contigs(
-            g, seeds, colour=args.colour, max_len=args.max_len)
+        extra = None
+        if links is not None:
+            from ..links import walk as lwalk
+            contigs, stats, extra = lwalk.assemble_contigs_primed(
+                g, links, seeds, colour=args.colour, max_len=args.max_len,
+                missing_check=args.missing_check,
+                track_used=args.use_seed_paths, return_extra=True,
+                **conf_kw)
+            if args.use_seed_paths:
+                used_links |= extra["used"]
+        else:
+            contigs, stats = T.assemble_linkless_contigs(
+                g, seeds, colour=args.colour, max_len=args.max_len)
         for i, c in enumerate(contigs):
             if args.ncontigs > 0 and ncontig >= args.ncontigs:
                 break
@@ -669,15 +713,38 @@ def cmd_contigs(argv):
                     continue
                 with timing.span("mark", device):
                     _mark_contig_kmers(g, c, visited)
+            hdr = f">contig{ncontig} length={len(c)} seed={int(seeds[i])}"
+            if extra is not None and conf_arr is not None:
+                hdr += (f" lf.conf={extra['cum_conf'][i, 1]:.5f}"
+                        f" lf.max_gap={int(extra['max_gap'][i, 1])}"
+                        f" rt.conf={extra['cum_conf'][i, 0]:.5f}"
+                        f" rt.max_gap={int(extra['max_gap'][i, 0])}")
             with timing.span("write"):
-                out.write(f">contig{ncontig} length={len(c)} "
-                          f"seed={int(seeds[i])}\n{c}\n")
+                out.write(f"{hdr}\n{c}\n")
             lengths.append(len(c))
             # both directions' halt reasons (ref assemble_stats
             # stop_causes table)
             for s_ in np.asarray(stats[i]).reshape(-1):
                 stop_counts[int(s_) % len(T.STATUS_STR)] += 1
             ncontig += 1
+
+    # second pass: seed from links never followed to their end in a
+    # contig (ref assemble_contigs.c _assemble_from_paths)
+    if args.use_seed_paths and links is not None:
+        from ..links import walk as lwalk
+        has_col = links.nseen[:, args.colour].cpu().numpy() != 0
+        unused = np.nonzero(has_col & ~used_links)[0]
+        status(f"contigs: seeding from {len(unused)} unused links")
+        for s0 in range(0, len(unused), batch):
+            lids = unused[s0:s0 + batch]
+            contigs, stats = lwalk.assemble_contigs_from_paths(
+                g, links, lids, colour=args.colour, max_len=args.max_len,
+                missing_check=args.missing_check, **conf_kw)
+            for i, c in enumerate(contigs):
+                out.write(f">contig{ncontig} length={len(c)} "
+                          f"seedpath={int(lids[i])}\n{c}\n")
+                lengths.append(len(c))
+                ncontig += 1
     if out is not sys.stdout:
         out.close()
     st = contig_stats(lengths, genome_size=args.genome or None)
@@ -749,6 +816,241 @@ def cmd_pview(argv):
     with opener(args.ctp, "rt") as fh:
         sys.stdout.write(fh.read())
     return 0
+
+
+# ---------------------------------------------------------------------------
+# thread (ref: src/commands/ctx_thread.c), single-end
+# ---------------------------------------------------------------------------
+
+def cmd_thread(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch thread")
+    p.add_argument("-1", "--seq", action="append", default=[],
+                   help="read files to thread")
+    p.add_argument("-p", "--paths", action="append", default=[],
+                   help="existing .ctp files to load first")
+    p.add_argument("-o", "--out", required=True, help="output .ctp[.gz]")
+    p.add_argument("--colour", type=int, default=0,
+                   help="link colour to record")
+    p.add_argument("--gap-fill", dest="gap_fill", action="store_true",
+                   default=True,
+                   help="bridge read errors through the graph while "
+                        "threading (default, ref one-way gap filling)")
+    p.add_argument("--no-gap-fill", dest="gap_fill", action="store_false")
+    p.add_argument("-2", "--seq2", action="append", nargs=2, default=[],
+                   metavar=("R1", "R2"),
+                   help="paired-end read files (not yet ported)")
+    p.add_argument("-i", "--seqi", action="append", default=[],
+                   help="interleaved paired-end reads (not yet ported)")
+    p.add_argument("-M", "--matepair", default="FR",
+                   choices=["FF", "FR", "RF", "RR"],
+                   help="mate pair orientation [default: FR]; no effect "
+                        "on single-end reads")
+    p.add_argument("-O", "--fq-offset", type=int, default=0,
+                   help="FASTQ ASCII offset: 33/64 [default: 0 = auto]")
+    p.add_argument("-H", "--cut-hp", type=int, default=0,
+                   help="break reads at homopolymer runs >= this")
+    p.add_argument("-X", "--max-context", type=int, default=None,
+                   help="kmers of aligned context to prime gap walkers "
+                        "with on either side of a gap [default: 200]")
+    p.add_argument("-e", "--end-check", dest="end_check",
+                   action="store_true", default=True,
+                   help="verify the walker agrees with the read after "
+                        "bridging a gap [default: on]")
+    p.add_argument("-E", "--no-end-check", dest="end_check",
+                   action="store_false")
+    p.add_argument("-0", "--zero-paths", action="store_true",
+                   help="zero counts on initially loaded links")
+    p.add_argument("-u", "--use-new-paths", action="store_true",
+                   help="use links as they are being added (batch "
+                        "granularity)")
+    p.add_argument("-L", "--max-frag-len", "--frag-len", type=int,
+                   dest="frag_len", default=1000,
+                   help="max fragment length (no effect on single-end "
+                        "reads)")
+    p.add_argument("-l", "--min-frag-len", type=int, default=0,
+                   help="min fragment length (no effect on single-end "
+                        "reads)")
+    p.add_argument("-w", "--one-way", dest="one_way",
+                   action="store_true", default=True,
+                   help="one-way gap filling (conservative, default)")
+    p.add_argument("-W", "--two-way", dest="one_way",
+                   action="store_false",
+                   help="two-way (meet-in-the-middle) gap filling")
+    p.add_argument("-g", "--gap-hist", default=None,
+                   help="save gap size distribution CSV")
+    p.add_argument("-G", "--frag-hist", default=None,
+                   help="save fragment size distribution CSV (empty for "
+                        "single-end reads)")
+    p.add_argument("-Q", "--fq-cutoff", type=int, default=0,
+                   help="mask bases with quality < Q before threading")
+    p.add_argument("-d", "--gap-diff-const", type=float, default=5,
+                   help="allowable gap: |exp-seen| <= exp*D + d")
+    p.add_argument("-D", "--gap-diff-coeff", type=float, default=0.1,
+                   help="gap tolerance coefficient")
+    p.add_argument("-x", "--print-contigs", action="store_true",
+                   help="debug: print each aligned node-path run")
+    p.add_argument("-y", "--print-paths", action="store_true",
+                   help="debug: dump the built links as text")
+    p.add_argument("-z", "--print-reads", action="store_true",
+                   help="debug: print each read as threaded")
+    p.add_argument("--devices", default=None,
+                   help="devices to run on; more than 1 is not yet ported")
+    p.add_argument("ctx")
+    add_common(p)
+    args = p.parse_args(_expand_pe_colon(argv))
+    if args.seq2:
+        _not_ported(p, "-2/--seq2 (paired-end threading)")
+    if args.seqi:
+        _not_ported(p, "-i/--seqi (paired-end threading)")
+    if devices_arg(args) > 1:
+        _not_ported(p, "--devices above 1")
+    status, device = apply_common(args, args.out, args.gap_hist,
+                                  args.frag_hist)
+    if not args.seq:
+        p.error("at least one --seq/--seq2/--seqi required")
+    if args.fq_offset not in (0, 33, 64):
+        p.error("--fq-offset must be 33 or 64 (0 = auto)")
+    timing.SPANS.clear()
+    import dataclasses
+    from ..align.correct import CorrectAlnStats
+    from ..graph import build as gbuild
+    from ..io import ctp as ctpio
+    from ..io import seqio
+    from ..links import store as lstore
+    from ..links import thread as lthread
+    h, g = _load_graphs([args.ctx], device)
+    ncols = max(h.ncols, args.colour + 1)
+    stats = lthread.ThreadStats(ncols)
+    aln_stats = CorrectAlnStats()
+
+    def _mask_q(codes, quals):
+        if (args.fq_cutoff and quals is not None) or args.cut_hp:
+            return gbuild.mask_reads(
+                torch.from_numpy(codes),
+                torch.from_numpy(quals) if quals is not None else None,
+                fq_cutoff=args.fq_cutoff if quals is not None else 0,
+                hp_cutoff=args.cut_hp).numpy()
+        return codes
+
+    with timing.span("read"):
+        batches = [(_mask_q(codes, quals), args.colour)
+                   for codes, quals, _ in seqio.read_batches(
+                       args.seq, fq_offset=args.fq_offset)]
+    if args.print_reads:
+        for bcodes, _c in batches:
+            for row in bcodes:
+                s = _BASE_CHARS[np.minimum(row, 4)].tobytes().decode()
+                print(f"read: {s.rstrip('N')}")
+    # loaded links guide the gap-fill walkers (ref generate_paths threads
+    # against already-loaded paths; -u also exposes this run's links to
+    # later batches)
+    prev = ctpio.load_link_store(args.paths, g) if args.paths else None
+    if args.zero_paths and prev is not None:
+        prev = dataclasses.replace(prev, nseen=torch.zeros_like(prev.nseen))
+    with timing.span("thread", device):
+        if args.gap_fill:
+            links = lthread.thread_reads_gapfill(
+                g, batches, ncols, links_prev=prev, stats=stats,
+                one_way=args.one_way, gap_variance=args.gap_diff_coeff,
+                gap_wiggle=args.gap_diff_const,
+                max_context=args.max_context, end_check=args.end_check,
+                use_new_paths=args.use_new_paths, aln_stats=aln_stats)
+        else:
+            links = lthread.thread_reads(g, batches, ncols, stats=stats)
+    if args.print_contigs:
+        for bcodes, _c in batches:
+            idx, orient, valid = (
+                t.cpu().numpy() for t in
+                lthread.reads_to_node_paths(g, bcodes, g.k))
+            for b in range(idx.shape[0]):
+                segs = []
+                run = []
+                for j in range(idx.shape[1]):
+                    if valid[b, j]:
+                        run.append(f"{idx[b, j]}:{int(orient[b, j])}")
+                    elif run:
+                        segs.append(" ".join(run))
+                        run = []
+                if run:
+                    segs.append(" ".join(run))
+                print(f"contig[{b}]: " + " | ".join(segs))
+    prev_commands = []
+    if args.paths:
+        if args.zero_paths:
+            status("zeroing link counts for loaded links")
+        links = lstore.merge_stores(prev, links, g.capacity)
+        # contig histograms and provenance from the input link files (ref
+        # ctx_thread.c:208 gpath_reader_load_contig_hist)
+        for pth in args.paths:
+            phdr = ctpio.load_ctp_header(pth)
+            prev_commands.extend(phdr.get("commands", []))
+            for c in range(ncols):
+                for lng, cnt in ctpio.contig_hist_from_header(
+                        phdr, c).items():
+                    stats.add_contig(c, lng, cnt)
+    status(f"threaded {sum(b.shape[0] for b, _ in batches)} reads + "
+           f"0 pairs -> {links.nlinks} links")
+    if aln_stats.num_gap_attempts:
+        status("[CorrectAln] " + aln_stats.summary())
+    if args.gap_hist:
+        aln_stats.dump_gaps(args.gap_hist)
+        status(f"[CorrectAln] saved gap size distribution to: "
+               f"{args.gap_hist}")
+    if args.frag_hist:
+        aln_stats.dump_fraglen(args.frag_hist)
+        status(f"[CorrectAln] saved fragment size distribution to: "
+               f"{args.frag_hist}")
+    with timing.span("write"):
+        # the command line as recorded omits --device: where the kernels
+        # ran does not change the links
+        ctpio.save_ctp(args.out, g, links,
+                       sample_names=[gi.sample_name for gi in h.ginfo],
+                       command="mctx thread " + " ".join(
+                           _without_device(argv)),
+                       contig_hists=stats.contig_hists,
+                       prev_commands=prev_commands)
+    if args.print_paths:
+        import gzip
+        opener = gzip.open if args.out.endswith(".gz") else open
+        with opener(args.out, "rt") as fh:
+            for line in fh:
+                if not line.startswith("#"):
+                    sys.stdout.write(line)
+    status(f"time split: {timing.summary()}")
+    return 0
+
+
+_BASE_CHARS = np.frombuffer(b"ACGTN", np.uint8)
+
+
+def _without_device(argv) -> list:
+    """argv less its --device option."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a == "--device":
+            skip = True
+        elif not a.startswith("--device="):
+            out.append(a)
+    return out
+
+
+def _expand_pe_colon(argv):
+    """Rewrite the reference's '-2 in1:in2' form to the two-argument
+    form."""
+    out = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a in ("-2", "--seq2") and i + 1 < len(argv) \
+                and ":" in argv[i + 1]:
+            out += [a] + argv[i + 1].split(":", 1)
+            i += 2
+        else:
+            out.append(a)
+            i += 1
+    return out
 
 
 def _parse_build_tasks(p, argv):

@@ -17,7 +17,9 @@ def _commands() -> dict:
             "inferedges": (commands.cmd_inferedges,
                            "infer population edges"),
             "contigs": (commands.cmd_contigs,
-                        "assemble contigs from the graph (linkless)"),
+                        "assemble contigs from the graph (-p: with links)"),
+            "thread": (commands.cmd_thread,
+                       "thread reads through the graph -> .ctp links"),
             "pview": (commands.cmd_pview, "print a link file as text"),
             "subgraph": (commands2.cmd_subgraph,
                          "extract the neighbourhood of seed sequences"),

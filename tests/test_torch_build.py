@@ -240,7 +240,10 @@ def test_cli_multicolour_masked_build_matches_mctx(tmp_path, monkeypatch, k):
         assert covg[:, 0].sum() > 0
 
 
-@pytest.mark.parametrize("flag", [["check", "-p", "links.ctp"],
+# `check -p` is ported (tests/test_torch_links_cli.py); paired-end
+# threading is still refused
+@pytest.mark.parametrize("flag", [["thread", "-i", "reads.fq", "-o",
+                                   "links.ctp"],
                                   ["build", "--devices", "2"]])
 def test_cli_rejects_flags_not_ported(tmp_path, flag, capsys):
     fa, _ = _write_inputs(tmp_path)

@@ -187,7 +187,11 @@ def test_contigs_matches_mctx(files, capsys, case):
         assert "HitMaxLen" in _lines(et, "[mctx] contigs halt")[0]
 
 
-@pytest.mark.parametrize("flags", [["-p", "links.ctp"], ["-P"],
+# -p and -P are ported (link-guided contigs, held against mctx by
+# tests/test_torch_links_cli.py); --devices above 1 stays refused with or
+# without them
+@pytest.mark.parametrize("flags", [["-p", "links.ctp", "--devices", "2"],
+                                   ["-P", "--devices", "2"],
                                    ["--devices", "2"]])
 def test_contigs_refuses_what_is_not_ported(files, capsys, flags):
     capsys.readouterr()

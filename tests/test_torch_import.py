@@ -17,6 +17,8 @@ import mccortex_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
+for n in ("links.thread", "links.walk", "links.check", "align.correct"):
+    assert pkg.__name__ + "." + n in names, n
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "triton"))
              or m == "mccortex_tpu" or m.startswith("mccortex_tpu."))
@@ -35,7 +37,7 @@ def test_every_module_imports_without_jax(tmp_path):
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 48      # ... incl. graph.traverse, links.store, io.ctp
+    assert n_modules >= 53      # ... incl. links.{thread,walk,check}, align
 
 
 def _sources(exts):

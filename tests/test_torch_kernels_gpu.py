@@ -762,3 +762,70 @@ def test_graph_command_on_card_matches_cpu(cuda, two_colour_ctx, monkeypatch,
     if cmd[0] in ("contigs", "inferedges", "subgraph"):
         assert got["cuda"][1].get("lookup", 0) > 0
         assert not got["cpu"][1].get("lookup", 0)
+
+
+@pytest.fixture(scope="module")
+def link_inputs(tmp_path_factory):
+    """A k=31 graph of a 30 kb genome with 20 planted 300 bp repeats,
+    built from its error-free reads, and reads of it with 0.5 %
+    substitutions to thread (each substitution a gap to fill)."""
+    from mccortex_tpu_torch.cli.main import main
+    d = tmp_path_factory.mktemp("links_gpu")
+    rng = np.random.default_rng(13)
+    genome = rng.integers(0, 4, 30_000)
+    unit = rng.integers(0, 4, 300)
+    for s in rng.integers(0, 30_000 - 300, 20):
+        genome[s:s + 300] = unit
+    starts = rng.integers(0, len(genome) - 150, 3000)
+    reads = np.stack([genome[s:s + 150] for s in starts])
+    fa, fq = str(d / "clean.fa"), str(d / "reads.fa")
+    with open(fa, "w") as fh:
+        for i, r in enumerate(reads):
+            fh.write(f">c{i}\n" + "".join("ACGT"[c] for c in r) + "\n")
+    err = rng.random(reads.shape) < 0.005
+    reads = np.where(err, (reads + 1) % 4, reads)
+    with open(fq, "w") as fh:
+        for i, r in enumerate(reads):
+            fh.write(f">r{i}\n" + "".join("ACGT"[c] for c in r) + "\n")
+    p = {"d": d, "ctx": str(d / "g.ctx"), "seq": fq}
+    assert main(["build", "-k", "31", "-s", "s", "--seq", fa, p["ctx"],
+                 "--device", "cpu", "-q"]) == 0
+    p["ctp"] = str(d / "l.ctp.gz")
+    assert main(["thread", "--seq", fq, "-o", p["ctp"], p["ctx"],
+                 "--device", "cpu", "-q"]) == 0
+    return p
+
+
+@pytest.mark.parametrize("cmd", [
+    ["thread", "--seq", "SEQ", "-o", "OUT"],
+    ["thread", "--no-gap-fill", "--seq", "SEQ", "-o", "OUT"],
+    ["thread", "-W", "-p", "CTP", "-0", "--seq", "SEQ", "-o", "OUT"],
+    ["contigs", "-p", "CTP", "-o", "OUT"],
+    ["contigs", "-p", "CTP", "-P", "-C", "0.5", "-G", "30000", "--max-len",
+     "2000", "-o", "OUT"],
+    ["check", "-p", "CTP"]])
+def test_link_command_on_card_matches_cpu(cuda, link_inputs, monkeypatch,
+                                          capsys, cmd):
+    """thread (gap-filled and plain), contigs -p and check -p write the
+    same bytes (decompressed for .ctp, the date fixed) and status from the
+    card as from the plain versions on the CPU, and launch the lookup
+    kernel on the card."""
+    import re
+    import time
+    from mccortex_tpu_torch.cli.main import main
+    p = link_inputs
+    monkeypatch.setattr(time, "strftime", lambda fmt, *a: "fixed")
+    out = str(p["d"] / "out")
+    argv = [{"OUT": out, "SEQ": p["seq"], "CTP": p["ctp"]}.get(a, a)
+            for a in cmd] + [p["ctx"]]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        _build.LAUNCHES.clear()
+        capsys.readouterr()
+        assert main(argv + ["--device", dev, "-f"]) == 0
+        err = re.sub(r"time split: .*", "", capsys.readouterr().err)
+        got[dev] = (_text_of(out) if "OUT" in cmd else b"", err,
+                    dict(_build.LAUNCHES))
+    assert got["cuda"][:2] == got["cpu"][:2]
+    assert got["cuda"][2].get("lookup", 0) > 0
+    assert not got["cpu"][2].get("lookup", 0)

@@ -151,10 +151,26 @@ def test_check_matches_mctx(graphs, capsys, tmp_path, case):
 
 
 def test_check_paths_is_refused(graphs, capsys):
-    with pytest.raises(SystemExit) as e:
-        _port(["check", "-p", "links.ctp", graphs["ab"]])
-    assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    """check -p is no longer refused: on the links mctx threads from two
+    reads crossing a shared middle (an X), the port gives mctx's exit
+    code and link status line."""
+    m = random_dna(40, seed=1500)
+    reads = [random_dna(40, seed=1501) + m + random_dna(40, seed=1502),
+             random_dna(40, seed=1503) + m + random_dna(40, seed=1504)]
+    fa, ctx, links = (str(graphs["d"] / n)
+                      for n in ("xl_reads.fa", "xl.ctx", "xl.ctp.gz"))
+    write_fasta(fa, reads)
+    assert _port(["build", "-k", str(K), "-s", "s", "--seq", fa, "-q",
+                  ctx]) == 0
+    assert mctx_main(["thread", "--no-gap-fill", "--seq", fa, "-o", links,
+                      ctx]) == 0
+    got = []
+    for run in (mctx_main, _port):
+        capsys.readouterr()
+        rc = run(["check", "-p", links, ctx])
+        got.append((rc, _lines(capsys.readouterr().err, "[mctx] links")))
+    assert got[1] == got[0]
+    assert got[0][0] == 0 and "links OK (4 links" in got[0][1][0]
 
 
 # ---------------------------------------------------------------------------
