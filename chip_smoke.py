@@ -87,8 +87,10 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    device operations per hop and the device's busy share;
 4e. links on that cleaned graph, through the CLI on the card: `thread
    --no-gap-fill` of all the reads, `thread` (gap filling) of the first
-   131,072 (the recipe of scripts/scale_test.py), `check -p` of both
-   (0 bad links), `contigs -p` over the whole graph with the first's
+   65,536 (half the 131,072 of scripts/scale_test.py, to stay in the
+   time limit), `check -p` of both
+   (0 bad links), `contigs -p -N 512` (one batch of 512 random seeds,
+   not the whole graph, to stay in the time limit) with the first's
    links (--batch 512, --max-len 65536, --no-reseed); each must launch
    the lookup kernel.  Checked in numpy: the contigs as in 4d, and 1000
    links of each file walked from their kmer along the graph's edge
@@ -97,6 +99,19 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    200,000 with the gap-filled links, cold and warm; one gap-fill batch
    and one `contigs -p` batch under torch.profiler: walker steps, device
    operations a step, the device's busy share;
+4f. paired-end links and read correction on that cleaned graph: a
+   library of 8,192 fragments of 400-500 bp drawn from the genome with
+   numpy (mate 1 the first 150 bp, mate 2 the reverse complement of the
+   last 150 bp, 0.3 % substitutions); `thread -2` (gap-filled, -L 600)
+   with `check -p` and 1000 of its links walked in numpy; one batch of
+   2048 pairs under torch.profiler; `links -T -H -l`, then `links -c`
+   at the suggested cutoff (every cleaned link a prefix of an input link
+   at its kmer and orientation, no more links than before); `correct`
+   of 16,384 single reads and 4,096 pairs with those links (more reads
+   equal to their genome substring after than before); `reads` of all
+   the reads with and without -v (the kept counts those of a numpy
+   membership test); `coverage -e -E` of 4096 reads (every coverage the
+   graph's, in numpy).  Each command must launch the lookup kernel;
 5. byte identity: a 2-colour build of a 200 kb genome at k=31 and k=63
    (k=31 under every sort engine), colour a's reads as SAM, BAM and CRAM
    (each must give the FASTQ build's bytes), a --graph + --seq2 -p
@@ -115,7 +130,11 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    -p with -0) of 4096 reads of colour a, `contigs -p` (-N 64; -P from
    the links of 64 reads; -C 0.5 -G 200000) and `check -p`, on the card
    and on the CPU: the same decompressed .ctp text (the date fixed, only
-   the generator masked), FASTA bytes and status lines.
+   the generator masked), FASTA bytes and status lines;
+5e. `thread -2` and `thread -i -W` of 2048 fragments of colour a's
+   genome, `links -c -l -T -H -P -L`, `reads -1/-2/-i` and `-v`,
+   `coverage -e -E` and `correct -1/-2/-i -F fastq -W -p`, on the card
+   and on the CPU: the same bytes and status lines.
 
 Prints a JSON line of per-kernel results (segreduce's launches split into
 the epochs' and the merges'), then `{"ok": true, "device":
@@ -223,13 +242,17 @@ def device_profile(torch, fn):
     wall = time.perf_counter() - t0
     kinds = {"kernel": 0, "memset": 0, "memcpy": 0}
     us = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    # the raw events: prof.events() would first build a Python object for
+    # each, tens of seconds for a walk's hundreds of thousands
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or \
+                getattr(e, "is_hidden_event", lambda: False)():
             continue
-        name = e.name.lower()
-        kinds["memset" if "memset" in name else
-              "memcpy" if "memcpy" in name else "kernel"] += 1
-        us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
+        name = e.name()
+        low = name.lower()
+        kinds["memset" if "memset" in low else
+              "memcpy" if "memcpy" in low else "kernel"] += 1
+        us[name] = us.get(name, 0.0) + e.duration_ns() / 1e3
     return kinds, us, wall
 
 
@@ -324,13 +347,34 @@ def kmers_np(seqs: np.ndarray, k: int):
     window of every row of an N-free (n, L) code array, row-major."""
     n, L = seqs.shape
     nw = L - k + 1
-    fw = np.zeros((n, nw), np.uint64)
-    rc = np.zeros((n, nw), np.uint64)
-    top = np.uint64(2 * k - 2)
-    for t in range(k):
-        b = seqs[:, t:t + nw].astype(np.uint64)
-        fw = (fw << np.uint64(2)) | b
-        rc = (rc >> np.uint64(2)) | ((np.uint64(3) - b) << top)
+
+    def forward(s):
+        # words of 1, 2, 4, ... bases at every start, each from two of
+        # half the width; a window of k bases joins the words of k's bits
+        words, w = {1: s}, 1
+        while 2 * w <= k:
+            a = words[w]
+            words[2 * w] = (a[:, :-w] << np.uint64(2 * w)) | a[:, w:]
+            w *= 2
+        out, off = None, 0
+        for w in sorted(words, reverse=True):
+            if k & w:
+                part = words[w][:, off:off + nw]
+                out = part if out is None else \
+                    (out << np.uint64(2 * w)) | part
+                off += w
+        return out
+
+    # the reverse complement's windows are the forward windows of the
+    # complemented row read backwards, in reverse order; rows go in
+    # blocks of about 64K bases so that the words stay in cache
+    fw = np.empty((n, nw), np.uint64)
+    rc = np.empty((n, nw), np.uint64)
+    step = max(1, (1 << 16) // L)
+    for s in range(0, n, step):
+        c = seqs[s:s + step]
+        fw[s:s + step] = forward(c.astype(np.uint64))
+        rc[s:s + step] = forward((3 - c[:, ::-1]).astype(np.uint64))[:, ::-1]
     return fw.reshape(-1), rc.reshape(-1)
 
 
@@ -1224,7 +1268,7 @@ def phase_main_path(torch, tmp, card):
         fail("a genome kmer covered by an error-free read window is missing")
     print(f"main path: {len(kv)} kmers (numpy reference equal), "
           f"{int(covered.sum())} covered genome kmers all present")
-    return launches, genome, reads, out
+    return launches, genome, reads, starts, out
 
 
 def profile_build(torch, reads):
@@ -1529,8 +1573,15 @@ def neighbour_keys_np(keys: np.ndarray, o: int, n: int, k: int) -> np.ndarray:
 
 
 def rows_of(keys: np.ndarray, q: np.ndarray):
-    """(row, found) of each query key in the sorted keys."""
-    pos = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+    """(row, found) of each query key in the sorted keys.  The queries
+    are searched in their sorted order, which keeps the search's reads
+    of the keys in cache (5x faster for 8M queries in 4M keys)."""
+    flat = q.reshape(-1)
+    order = np.argsort(flat)
+    pos = np.empty(flat.shape, np.int64)
+    pos[order] = np.minimum(np.searchsorted(keys, flat[order]),
+                            len(keys) - 1)
+    pos = pos.reshape(q.shape)
     return pos, keys[pos] == q
 
 
@@ -1881,6 +1932,7 @@ def phase_byte_identity(torch, tmp):
     phase_store_cmds(tmp, raw, os.path.join(tmp, "fmt_sam_cuda.ctx"))
     phase_graph_cmds(tmp, raw, genome)
     phase_link_cmds(tmp, raw, genome)
+    phase_read_cmds(tmp, genome)
 
 
 def run_cli_out(argv) -> tuple:
@@ -1892,12 +1944,57 @@ def run_cli_out(argv) -> tuple:
     return buf.getvalue(), err
 
 
+def same_on_both(name, argv, outs=(), need=("lookup",)):
+    """One port command on the card and on the CPU with the same output
+    paths (a .ctp header records the command line): every file it writes
+    under one of the prefixes `outs` (decompressed, the .ctp generator
+    masked; the date is fixed), its standard output and its status lines
+    (times dropped) must be equal, at least one file non-empty where
+    `outs` is given, and the card's run must launch each kernel of
+    `need`.  Returns (files, stdout, status, card wall, CPU wall, card
+    launches); the files on disk are the CPU's."""
+    import glob
+    import gzip
+    from mccortex_tpu_torch.ops.kernels import _build
+    got = {}
+    strftime = time.strftime
+    time.strftime = lambda fmt, *a: "2026-01-01 00:00:00"
+    try:
+        for dev in ("cuda", "cpu"):
+            for o in outs:
+                for f in glob.glob(o + "*"):
+                    os.remove(f)
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            text, err = run_cli_out(argv + ["--device", dev])
+            wall = time.perf_counter() - t0
+            files = {}
+            for o in outs:
+                for f in sorted(glob.glob(o + "*")):
+                    data = open(f, "rb").read()
+                    if data[:2] == b"\x1f\x8b":
+                        data = gzip.decompress(data)
+                    files[os.path.basename(f)] = re.sub(
+                        rb'"generator": "[^"]*"', b"", data)
+            got[dev] = (files, text, re.sub(r"[\d.]+s\b", "", re.sub(
+                r"time split: .*", "", err)), wall, dict(_build.LAUNCHES))
+    finally:
+        time.strftime = strftime
+    if got["cuda"][:3] != got["cpu"][:3]:
+        fail(f"{name}: the CUDA and CPU outputs differ")
+    if outs and not any(got["cpu"][0].values()):
+        fail(f"{name} wrote no output")
+    for kernel in need:
+        if got["cuda"][4].get(kernel, 0) <= 0:
+            fail(f"{name} on the card never launched the {kernel} kernel")
+    return got["cpu"][:3] + (got["cuda"][3], got["cpu"][3], got["cuda"][4])
+
+
 def phase_store_cmds(tmp, two, one):
     """5b: the store-only commands on the k=31 graphs (`two`: 2 colours,
     `one`: 1 colour), on the card and on the CPU: output bytes, text and
     status lines equal; the kernels each launches on the card."""
     from mccortex_tpu_torch.io import ctx as ctxio
-    from mccortex_tpu_torch.ops.kernels import _build
 
     h, keys, covg, edges = ctxio.read_ctx(two)
     perm = np.random.default_rng(4).permutation(len(keys))
@@ -1914,33 +2011,19 @@ def phase_store_cmds(tmp, two, one):
         ("dist", ["dist", "-o", "OUT", two], ()),
         ("sort", ["sort", "-o", "OUT", scrambled], ()),
         ("index", ["index", "-b", "1000", "-o", "OUT", two], ()))
+    out = os.path.join(tmp, "cmd_out")
     for name, argv, need in cases:
-        got = {}
-        for dev in ("cuda", "cpu"):
-            out = os.path.join(tmp, f"cmd_{dev}.out")
-            if os.path.exists(out):
-                os.remove(out)
-            _build.LAUNCHES.clear()
-            t0 = time.perf_counter()
-            text, err = run_cli_out([out if a == "OUT" else a for a in argv]
-                                    + ["--device", dev])
-            wall = time.perf_counter() - t0
-            launched = dict(_build.LAUNCHES)
-            data = open(out, "rb").read() if "OUT" in argv else b""
-            got[dev] = (data, text, re.sub(r"in [\d.]+s", "", err), wall,
-                        launched)
-        if got["cuda"][:3] != got["cpu"][:3]:
-            fail(f"{name}: the CUDA and CPU outputs differ")
-        for kernel in need:
-            if got["cuda"][4].get(kernel, 0) <= 0:
-                fail(f"{name} on the card never launched the {kernel} kernel")
-        if name == "sort" and got["cuda"][0] != open(two, "rb").read():
+        files, text, _st, wcard, wcpu, launched = same_on_both(
+            name, [out if a == "OUT" else a for a in argv],
+            [out] if "OUT" in argv else [], need)
+        data = files.get("cmd_out", b"")
+        if name == "sort" and data != open(two, "rb").read():
             fail("sort did not restore the sorted graph")
         print(f"store command {name} (k={K_MAIN}): "
-              f"{len(got['cuda'][0]) + len(got['cuda'][1])} bytes out, CUDA "
-              f"== CPU; wall {got['cuda'][3]:.3f}s on the card "
-              f"(launches {json.dumps(got['cuda'][4])}), "
-              f"{got['cpu'][3]:.3f}s on the CPU")
+              f"{len(data) + len(text)} bytes out, CUDA "
+              f"== CPU; wall {wcard:.3f}s on the card "
+              f"(launches {json.dumps(launched)}), "
+              f"{wcpu:.3f}s on the CPU")
 
 
 def phase_graph_cmds(tmp, two, genome):
@@ -1948,11 +2031,9 @@ def phase_graph_cmds(tmp, two, genome):
     two-colour graph, on the card and on the CPU: the same FASTA and .ctx
     bytes, and the same decompressed .ctp text with the date fixed.  The
     link file is written by the port's save_ctp from random links."""
-    import gzip
     from mccortex_tpu_torch.cli.commands import _load_graph
     from mccortex_tpu_torch.io import ctp
     from mccortex_tpu_torch.links import store as lstore
-    from mccortex_tpu_torch.ops.kernels import _build
 
     rng = np.random.default_rng(5)
     g = _load_graph(two, "cpu")[1]
@@ -1974,41 +2055,21 @@ def phase_graph_cmds(tmp, two, genome):
         ("subgraph -U", ["subgraph", "--seq", sfa, "-U", "--dist", "2", "-o",
                          "OUT", two]),
         ("pjoin -r", ["pjoin", "-r", "-o", "OUT", two, ctp_in, ctp_in]))
-    strftime = time.strftime
-    time.strftime = lambda fmt, *a: "2026-01-01 00:00:00"
-    try:
-        for name, argv in cases:
-            got = {}
-            for dev in ("cuda", "cpu"):
-                out = os.path.join(tmp, f"g5c_{dev}.out")
-                if os.path.exists(out):
-                    os.remove(out)
-                _build.LAUNCHES.clear()
-                t0 = time.perf_counter()
-                err = run_cli([out if a == "OUT" else a for a in argv]
-                              + ["--device", dev])
-                wall = time.perf_counter() - t0
-                data = open(out, "rb").read()
-                if data[:2] == b"\x1f\x8b":
-                    data = gzip.decompress(data)
-                got[dev] = (data, re.sub(r"[\d.]+s\b", "", err), wall,
-                            dict(_build.LAUNCHES))
-            if got["cuda"][:2] != got["cpu"][:2] or not got["cpu"][0]:
-                fail(f"{name}: the CUDA and CPU outputs differ")
-            if name != "pjoin -r" and got["cuda"][3].get("lookup", 0) <= 0:
-                fail(f"{name} on the card never launched the lookup kernel")
-            extra = ""
-            if name == "inferedges":
-                added = check_inferred(two, out, K_MAIN)
-                extra = (f"{added} edge bits added, each joining two kmers "
-                         f"covered in its colour; ")
-            print(f"graph command {name} (k={K_MAIN}, 2 colours): {extra}"
-                  f"{len(got['cuda'][0])} bytes out, CUDA == CPU; wall "
-                  f"{got['cuda'][2]:.3f}s on the card (launches "
-                  f"{json.dumps(got['cuda'][3])}), {got['cpu'][2]:.3f}s on "
-                  f"the CPU")
-    finally:
-        time.strftime = strftime
+    out = os.path.join(tmp, "g5c_out")
+    for name, argv in cases:
+        files, _t, _st, wcard, wcpu, launched = same_on_both(
+            name, [out if a == "OUT" else a for a in argv], [out],
+            () if name == "pjoin -r" else ("lookup",))
+        extra = ""
+        if name == "inferedges":
+            added = check_inferred(two, out, K_MAIN)
+            extra = (f"{added} edge bits added, each joining two kmers "
+                     f"covered in its colour; ")
+        print(f"graph command {name} (k={K_MAIN}, 2 colours): {extra}"
+              f"{len(files['g5c_out'])} bytes out, CUDA == CPU; wall "
+              f"{wcard:.3f}s on the card (launches "
+              f"{json.dumps(launched)}), {wcpu:.3f}s on "
+              f"the CPU")
 
 
 class StepCounter:
@@ -2138,11 +2199,15 @@ def gap_counts(log: str) -> str:
     return m.group(1) if m else "no gaps"
 
 
+N_GAP_READS = 65_536      # phase 4e's reads through gap-filled thread (half
+                          # of scale_test.py's 131,072, for the time limit)
+
+
 def phase_links(torch, tmp, card, genome, reads, fq, linkless_n50) -> int:
     """4e: links on the cleaned E. coli graph of phase 4b, through the CLI
     on the card: thread --no-gap-fill over all the reads, thread with gap
-    filling over the first 131,072, check -p of both, contigs -p with the
-    first's links over the whole graph; assemble_contigs_primed of 256
+    filling over the first N_GAP_READS, check -p of both, contigs -p with
+    the first's links from 512 random seeds; assemble_contigs_primed of 256
     seeds at max_len 200,000 with the gap-filled links, cold and warm; a
     gap-fill batch and a contigs -p batch under torch.profiler.  Returns
     the lookup kernel's launches."""
@@ -2158,11 +2223,11 @@ def phase_links(torch, tmp, card, genome, reads, fq, linkless_n50) -> int:
     lookups = 0
     all_ctp = os.path.join(tmp, "links_all.ctp.gz")
     gap_ctp = os.path.join(tmp, "links_gap.ctp.gz")
-    fq131 = os.path.join(tmp, "reads131k.fq")
-    write_fastq(fq131, reads[:131_072])
+    fq_gap = os.path.join(tmp, "reads_gap.fq")
+    write_fastq(fq_gap, reads[:N_GAP_READS])
     for label, argv, out in (
             ("thread --no-gap-fill", ["--no-gap-fill", "--seq", fq], all_ctp),
-            ("thread", ["--seq", fq131], gap_ctp)):
+            ("thread", ["--seq", fq_gap], gap_ctp)):
         with StepCounter(lwalk) as sc:
             log, wall, nl = lookups_of(["thread"] + argv + ["-o", out, cln],
                                        label)
@@ -2193,19 +2258,21 @@ def phase_links(torch, tmp, card, genome, reads, fq, linkless_n50) -> int:
     fa = os.path.join(tmp, "contigs_linked.fa")
     with StepCounter(lwalk) as sc:
         log, wall, nl = lookups_of(
-            ["contigs", "-p", all_ctp, "--batch", "512", "--max-len",
-             "65536", "--no-reseed", "-o", fa, cln], "contigs -p")
+            ["contigs", "-p", all_ctp, "-N", "512", "--batch", "512",
+             "--max-len", "65536", "--no-reseed", "-o", fa, cln],
+            "contigs -p")
     lookups += nl
     st = check_contigs(read_fasta_seqs(fa), kv, genome, K_MAIN,
                        "mctx-torch contigs -p")
     halts = re.search(r"contigs halt reasons: (.*)", log)
     if not halts:
         fail("contigs -p printed no halt-reason line")
-    print(f"links: mctx-torch contigs -p of the whole cleaned graph "
+    print(f"links: mctx-torch contigs -p -N 512 of the cleaned graph "
           f"(--batch 512, --max-len 65536, --no-reseed) wall {wall:.3f}s; "
           f"{sc.batches} batches walked, {sc.steps} linked walker steps, "
           f"{st['n']} contigs; total {st['total']} bp, max {st['max']}, "
-          f"N50 {st['n50']} (linkless N50 {linkless_n50}); dropped pickups "
+          f"N50 {st['n50']} (linkless over the whole graph N50 "
+          f"{linkless_n50}); dropped pickups "
           f"{sc.drops}; lookup launches {nl}; halt reasons: "
           f"{halts.group(1)}; split: {time_split(log)}")
 
@@ -2236,13 +2303,14 @@ def phase_links(torch, tmp, card, genome, reads, fq, linkless_n50) -> int:
     all_links = ctp.load_link_store([all_ctp], g)
     for label, fn, warm in (
             ("gap-fill batch of 2048 reads",
-             lambda: acorrect.correct_batch(g, None, batch), None),
+             lambda: acorrect.correct_batch(g, None, batch),
+             lambda: acorrect.correct_batch(g, None, batch[:64])),
             ("contigs -p batch of 512 seeds",
              lambda: lwalk.assemble_contigs_primed(
                  g, all_links, np.arange(512), colour=0, max_len=65536,
                  missing_check=True),
              lambda: lwalk.get_hopinfo(g, all_links))):
-        (warm or fn)()
+        warm()
         with StepCounter(lwalk) as sc:
             kinds, us, pwall = device_profile(torch, fn)
         ops = sum(kinds.values())
@@ -2258,6 +2326,254 @@ def phase_links(torch, tmp, card, genome, reads, fq, linkless_n50) -> int:
     return lookups
 
 
+def pe_library(genome: np.ndarray, n: int, seed: int, rlen: int = 150,
+               flen=(400, 500), err: float = 0.003):
+    """A paired-end library of the genome made as an Illumina library is:
+    n fragments of flen bp drawn with numpy from a fixed seed, mate 1 the
+    first rlen bp of each, mate 2 the reverse complement of its last rlen
+    bp, both with substitutions at rate err.  Returns (mate1, mate2,
+    fragment starts, fragment lengths)."""
+    rng = np.random.default_rng(seed)
+    fl = rng.integers(flen[0], flen[1] + 1, n)
+    fs = rng.integers(0, len(genome) - flen[1], n)
+    m1 = genome[fs[:, None] + np.arange(rlen)]
+    m2 = 3 - genome[(fs + fl)[:, None] - 1 - np.arange(rlen)]
+    for m in (m1, m2):
+        nerr = int(err * m.size)
+        m[rng.integers(0, n, nerr), rng.integers(0, rlen, nerr)] = \
+            rng.integers(0, 4, nerr, dtype=np.uint8)
+    return m1, m2, fs, fl
+
+
+def pe_truth(genome: np.ndarray, fs: np.ndarray, fl: np.ndarray,
+             rlen: int = 150):
+    """The error-free mates of pe_library's fragments."""
+    return (genome[fs[:, None] + np.arange(rlen)],
+            3 - genome[(fs + fl)[:, None] - 1 - np.arange(rlen)])
+
+
+def equal_to_truth(seqs: list, truth: np.ndarray) -> int:
+    """How many sequences (case ignored) equal their row of truth."""
+    n = 0
+    for s, t in zip(seqs, truth):
+        c = codes_of(s.upper())
+        n += len(c) == len(t) and bool((c == t).all())
+    return n
+
+
+def read_threshold_file(path: str) -> dict:
+    """A links -T file: sumcovgs=, cutoffs= and suggested_cutoff= lines."""
+    out = {}
+    for line in open(path).read().splitlines():
+        key, val = line.split("=", 1)
+        out[key] = [int(x) for x in val.split(",") if x]
+    if set(out) != {"sumcovgs", "cutoffs", "suggested_cutoff"} or \
+            len(out["suggested_cutoff"]) != 1:
+        fail(f"{path} does not parse as a threshold file")
+    return out
+
+
+N_PAIRS = 8_192           # phase 4f's paired-end fragments (8,192 rather
+                          # than 32,768 keeps the script in its time limit)
+N_SINGLE = 16_384         # phase 4f's single reads through correct -1
+FRAG_MAX = 600            # thread/correct -L for its 400-500 bp fragments
+
+
+def phase_reads_correct(torch, tmp, card, genome, reads, starts, fq) -> int:
+    """4f: paired-end links, link cleaning, read correction, read
+    filtering and coverage on the cleaned E. coli graph of phase 4b,
+    through the CLI on the card, each held to numpy.  Returns the lookup
+    kernel's launches."""
+    from mccortex_tpu_torch.graph import store as gstore
+    from mccortex_tpu_torch.io import ctx as ctxio
+    from mccortex_tpu_torch.links import thread as lthread
+    from mccortex_tpu_torch.links import walk as lwalk
+
+    t_phase = time.perf_counter()
+    cln = os.path.join(tmp, "clean.ctx")
+    h, keys, covg, edges = ctxio.read_ctx(cln)
+    kv = keys[:, 0]
+    lookups = 0
+    m1, m2, fs, fl = pe_library(genome, N_PAIRS, seed=5)
+    t1, t2 = pe_truth(genome, fs, fl)
+    r1, r2 = (os.path.join(tmp, f"pe_{i}.fq") for i in (1, 2))
+    write_fastq(r1, m1)
+    write_fastq(r2, m2)
+    print(f"4f: paired-end library of {N_PAIRS} fragments of {fl.min()}-"
+          f"{fl.max()} bp, mates of 150 bp ({int((m1 != t1).sum() + (m2 != t2).sum())} "
+          f"substitutions); thread/correct -L {FRAG_MAX}")
+
+    # thread -2, gap-filled: links that span each fragment
+    pe_ctp = os.path.join(tmp, "links_pe.ctp.gz")
+    with StepCounter(lwalk) as sc:
+        log, wall, nl = lookups_of(
+            ["thread", "-2", r1, r2, "-L", str(FRAG_MAX), "-o", pe_ctp, cln],
+            "thread -2")
+    lookups += nl
+    m = re.search(r"threaded (\d+) reads \+ (\d+) pairs -> (\d+) links", log)
+    ins = re.search(r"insert (\d+)/(\d+)", log)
+    if not m or int(m.group(2)) != N_PAIRS or int(m.group(3)) <= 0 \
+            or not ins:
+        fail("thread -2 did not thread every pair into links")
+    print(f"4f on {card}: mctx-torch thread -2 of {N_PAIRS} pairs over the "
+          f"{len(kv)}-kmer cleaned graph: wall {wall:.3f}s "
+          f"({N_PAIRS / wall:.0f} pairs/s), {m.group(3)} links, insert gaps "
+          f"bridged {ins.group(1)}/{ins.group(2)}, {sc.steps} linked walker "
+          f"steps; gap fill: {gap_counts(log)}; lookup launches {nl}; "
+          f"split: {time_split(log)}")
+    log, wall, nl = lookups_of(["check", "-p", pe_ctp, cln], "check -p")
+    lookups += nl
+    mc = re.search(r"links OK \((\d+) links, (\d+) colour-walks", log)
+    if not mc:
+        fail("check -p of the paired-end links did not report them OK")
+    walks = check_link_walks(pe_ctp, kv, edges, K_MAIN)
+    print(f"4f: mctx-torch check -p of the paired-end links: wall "
+          f"{wall:.3f}s, {mc.group(1)} links, 0 bad; lookup launches {nl}; "
+          f"numpy: {walks['n']} of {walks['links']} links drawn walk every "
+          f"one of their {walks['junctions']} junctions along existing "
+          f"edges ({walks['steps']} steps)")
+
+    # one batch of 2048 pairs under torch.profiler, caches warm
+    g = gstore.from_host(keys, covg, edges, K_MAIN, "cuda")
+
+    def pe_batch(n=2048):
+        return lthread.thread_reads_pe(
+            g, [(m1[:n], m2[:n], 0)], 1, frag_len_max=FRAG_MAX)
+    pe_batch(64)
+    with StepCounter(lwalk) as sc:
+        kinds, us, pwall = device_profile(torch, pe_batch)
+    ops = sum(kinds.values())
+    dev_s = sum(us.values()) / 1e6
+    if ops == 0 or sc.steps == 0:
+        fail("torch.profiler saw no device operation of the pair batch")
+    print(f"4f: thread_reads_pe, one batch of 2048 pairs under "
+          f"torch.profiler: {sc.steps} walker steps, {ops} device "
+          f"operations ({json.dumps(kinds)}), {ops / sc.steps:.1f} per step; "
+          f"device time {1e3 * dev_s:.3f} ms, busy {100 * dev_s / pwall:.1f}% "
+          f"of its wall under the profiler ({pwall:.4f}s)")
+    del g
+
+    # links: the trees inspected, then cleaned at the suggested cutoff
+    thr, hist, lst = (os.path.join(tmp, f"pe_links.{x}")
+                      for x in ("thr", "hist.csv", "list.csv"))
+    log, wall, nl = lookups_of(["links", "-T", thr, "-H", hist, "-l", lst,
+                                cln, pe_ctp], "links -T -H -l")
+    lookups += nl
+    sug = read_threshold_file(thr)["suggested_cutoff"][0]
+    cut = sug if sug > 1 else 2
+    nrows = len(open(lst).read().splitlines()) - 1
+    cleaned = os.path.join(tmp, "links_pe_clean.ctp.gz")
+    log2, wall2, nl2 = lookups_of(["links", "-c", str(cut), "-o", cleaned,
+                                   cln, pe_ctp], "links -c")
+    lookups += nl2
+    kin, oin, jin = parse_ctp_links(pe_ctp)
+    kout, oout, jout = parse_ctp_links(cleaned)
+    by_vertex = {}
+    for km, o, j in zip(kin, oin.tolist(), jin):
+        by_vertex.setdefault((km, o), []).append(j)
+    for km, o, j in zip(kout, oout.tolist(), jout):
+        if not any(x.startswith(j) for x in by_vertex.get((km, o), ())):
+            fail(f"cleaned link {km} {'FR'[o]} {j} is no prefix of an input "
+                 "link at its kmer and orientation")
+    if len(kout) > len(kin):
+        fail(f"links -c raised the links {len(kin)} -> {len(kout)}")
+    print(f"4f: mctx-torch links -T -H -l wall {wall:.3f}s (suggested "
+          f"cutoff {sug}, {nrows} junction edges listed; split: "
+          f"{time_split(log)}), links -c {cut} wall {wall2:.3f}s: "
+          f"{len(kin)} -> {len(kout)} links, each a prefix of an input "
+          f"link at its kmer and orientation; lookup launches {nl} + {nl2}")
+
+    # correct: single reads and pairs, guided by the paired-end links
+    n_se, n_pe = min(N_SINGLE, len(reads)), N_PAIRS // 2
+    se_fq = os.path.join(tmp, "se_reads.fq")
+    write_fastq(se_fq, reads[:n_se])
+    se_truth = np.lib.stride_tricks.sliding_window_view(genome, 150)[
+        starts[:n_se]]
+    se_out = os.path.join(tmp, "se_fixed.fa")
+    log, wall, nl = lookups_of(["correct", "-1", se_fq, "-o", se_out, "-p",
+                                pe_ctp, cln], "correct -1")
+    lookups += nl
+    before = int((reads[:n_se] == se_truth).all(axis=1).sum())
+    after = equal_to_truth(read_fasta_seqs(se_out), se_truth)
+    print(f"4f: mctx-torch correct -1 of {n_se} reads wall {wall:.3f}s: "
+          f"{before} -> {after} reads equal to their genome substring; "
+          f"{re.search(r'corrected .*', log).group(0)}; lookup launches {nl};"
+          f" split: {time_split(log)}")
+    if after <= before:
+        fail("correct -1 made no read equal to its genome substring")
+    p1, p2 = (os.path.join(tmp, f"pe_half_{i}.fq") for i in (1, 2))
+    write_fastq(p1, m1[:n_pe])
+    write_fastq(p2, m2[:n_pe])
+    pe_out = os.path.join(tmp, "pe_half_fixed.fa")
+    log, wall, nl = lookups_of(["correct", "-2", p1, p2, "-o", pe_out, "-L",
+                                str(FRAG_MAX), "-p", pe_ctp, cln],
+                               "correct -2")
+    lookups += nl
+    got = read_fasta_seqs(pe_out)
+    truth = np.empty((2 * n_pe, 150), np.uint8)
+    truth[0::2], truth[1::2] = t1[:n_pe], t2[:n_pe]
+    mates = np.empty_like(truth)
+    mates[0::2], mates[1::2] = m1[:n_pe], m2[:n_pe]
+    before = int((mates == truth).all(axis=1).sum())
+    after = equal_to_truth(got, truth)
+    print(f"4f: mctx-torch correct -2 of {n_pe} pairs wall {wall:.3f}s: "
+          f"{before} -> {after} mates equal to their genome substring; "
+          f"{re.search(r'corrected .*', log).group(0)}; "
+          f"{gap_counts(log)}; lookup launches {nl}; split: "
+          f"{time_split(log)}")
+    if after <= before:
+        fail("correct -2 made no mate equal to its genome substring")
+
+    # reads: kept and dropped against a numpy membership test
+    nw = reads.shape[1] - K_MAIN + 1
+    touch = np.zeros(len(reads), bool)
+    for c0 in range(0, len(reads), 65_536):
+        ck = canonical_kmers_np(reads[c0:c0 + 65_536], K_MAIN)
+        touch[c0:c0 + 65_536] = rows_of(kv, ck)[1].reshape(-1, nw).any(
+            axis=1)
+    counts = {}
+    for inv in (False, True):
+        out = os.path.join(tmp, f"reads_kept_{int(inv)}.fa")
+        log, wall, nl = lookups_of(["reads", "--seq", fq, "-o", out, cln]
+                                   + (["-v"] if inv else []),
+                                   "reads" + (" -v" if inv else ""))
+        lookups += nl
+        mr = re.search(r"kept (\d+)/(\d+) reads", log)
+        counts[inv] = (int(mr.group(1)), int(mr.group(2)))
+        print(f"4f: mctx-torch reads{' -v' if inv else ''} of {len(reads)} "
+              f"reads wall {wall:.3f}s: kept {mr.group(1)}/{mr.group(2)}; "
+              f"lookup launches {nl}; split: {time_split(log)}")
+    want = int(touch.sum())
+    if counts[False] != (want, len(reads)) or \
+            counts[True] != (len(reads) - want, len(reads)):
+        fail(f"reads kept {counts} against numpy's {want} of {len(reads)}")
+    print(f"4f: reads kept {want} and dropped {len(reads) - want} equal the "
+          f"numpy membership test; the two sum to {len(reads)}")
+
+    # coverage of 4096 reads against the graph's coverage in numpy
+    q_fq = os.path.join(tmp, "reads4k.fq")
+    write_fastq(q_fq, reads[:4096])
+    cov = os.path.join(tmp, "reads4k.cov")
+    log, wall, nl = lookups_of(["coverage", "-1", q_fq, "-e", "-E", "-o", cov,
+                                cln], "coverage -e -E")
+    lookups += nl
+    lines = open(cov).read().split("\n")
+    got = np.array([[int(x) for x in lines[4 * i + 1].split()]
+                    for i in range(4096)], np.int64)
+    ck = canonical_kmers_np(reads[:4096], K_MAIN)
+    row, found = rows_of(kv, ck)
+    want = np.where(found, covg[row, 0], 0).reshape(4096, nw)
+    if not np.array_equal(got, want) or \
+            any(len(lines[4 * i + 3]) != nw for i in range(4096)):
+        fail("coverage differs from the graph's coverage in numpy")
+    print(f"4f: mctx-torch coverage -e -E of 4096 reads wall {wall:.3f}s: "
+          f"{got.size} coverages equal the graph's in numpy; lookup "
+          f"launches {nl}")
+    print(f"4f: phase wall {time.perf_counter() - t_phase:.1f}s; lookup "
+          f"launches {lookups}")
+    return lookups
+
+
 def phase_link_cmds(tmp, two, genome):
     """5d: thread (default, --no-gap-fill, -W, -p with -0) of the first
     4096 reads of colour a against the cleaned 2-colour graph of phase 5,
@@ -2265,9 +2581,6 @@ def phase_link_cmds(tmp, two, genome):
     links of 64 reads; with -C -G) and check -p, on the card and on the CPU: the same decompressed
     .ctp text (the date fixed, only the generator masked), the same FASTA
     bytes and status."""
-    import gzip
-    from mccortex_tpu_torch.ops.kernels import _build
-
     cln = os.path.join(tmp, "cuda_c.ctx")
     # colour a's reads: thread follows the edges of colour 0, where the
     # links go, so reads of colour b would thread through its SNP kmers
@@ -2288,66 +2601,108 @@ def phase_link_cmds(tmp, two, genome):
         ("thread 64 reads", ["thread", "--seq", fq + ".64", "-o", "OUT",
                              cln], L["small"]),
         ("contigs -p", ["contigs", "-p", L["default"], "-N", "64",
-                        "--batch", "64", "--max-len", "1000", "-o", "OUT",
+                        "--batch", "64", "--max-len", "300", "-o", "OUT",
                         cln], None),
         ("contigs -p -P", ["contigs", "-p", L["small"], "-P", "-N", "64",
                            "--batch", "64", "--max-len", "300", "-o", "OUT",
                            cln], None),
         ("contigs -p -C 0.5 -G 200000",
          ["contigs", "-p", L["default"], "-C", "0.5", "-G", "200000", "-N",
-          "64", "--batch", "64", "--max-len", "1000", "-o", "OUT", cln],
+          "64", "--batch", "64", "--max-len", "300", "-o", "OUT", cln],
          None),
         ("check -p", ["check", "-p", L["default"], cln], None))
     with open(fq, "rb") as src, open(fq + ".64", "wb") as dst:
         for _ in range(4 * 64):
             dst.write(src.readline())
-    strftime = time.strftime
-    time.strftime = lambda fmt, *a: "2026-01-01 00:00:00"
-    try:
-        for name, argv, keep in cases:
-            got = {}
-            for dev in ("cuda", "cpu"):
-                # one output path on both devices: a .ctp header records
-                # the command line
-                out = os.path.join(tmp, "l5_out")
-                if os.path.exists(out):
-                    os.remove(out)
-                _build.LAUNCHES.clear()
-                t0 = time.perf_counter()
-                err = run_cli([out if a == "OUT" else a for a in argv]
-                              + ["--device", dev])
-                wall = time.perf_counter() - t0
-                data = open(out, "rb").read() if "OUT" in argv else b""
-                if data[:2] == b"\x1f\x8b":
-                    data = gzip.decompress(data)
-                    data = re.sub(rb'"generator": "[^"]*"', b"", data)
-                    if keep and dev == "cuda":
-                        os.replace(out, keep)
-                got[dev] = (data, re.sub(r"[\d.]+s\b", "", re.sub(
-                    r"time split: .*", "", err)), wall,
-                    dict(_build.LAUNCHES))
-            if got["cuda"][:2] != got["cpu"][:2]:
-                fail(f"{name}: the CUDA and CPU outputs differ")
-            if got["cuda"][3].get("lookup", 0) <= 0:
-                fail(f"{name} on the card never launched the lookup kernel")
-            extra = ""
-            if name.startswith("thread"):
-                nreads, nlinks = thread_counts(got["cpu"][1])
-                extra = f"{nreads} reads -> {nlinks} links; "
-            elif name.startswith("contigs"):
-                extra = (f"{got['cpu'][0].count(b'>')} contigs"
-                         f"{', lf.conf headers' if b'lf.conf' in got['cpu'][0] else ''}"
-                         f"{', seeded from unused links' if b'seedpath' in got['cpu'][0] else ''}; ")
-            elif "links OK" not in got["cpu"][1]:
-                fail("check -p did not report the links OK")
-            print(f"link command {name} (k={K_MAIN}, 2 colours, cleaned): "
-                  f"{extra}{len(got['cuda'][0])} bytes out, CUDA == CPU; "
-                  f"wall {got['cuda'][2]:.3f}s on the card (launches "
-                  f"{json.dumps(got['cuda'][3])}), {got['cpu'][2]:.3f}s on "
-                  f"the CPU")
-    finally:
-        time.strftime = strftime
+    # one output path on both devices: a .ctp header records the
+    # command line
+    out = os.path.join(tmp, "l5_out")
+    for name, argv, keep in cases:
+        files, _t, status, wcard, wcpu, launched = same_on_both(
+            name, [out if a == "OUT" else a for a in argv],
+            [out] if "OUT" in argv else [])
+        data = files.get("l5_out", b"")
+        if keep:
+            os.replace(out, keep)
+        extra = ""
+        if name.startswith("thread"):
+            nreads, nlinks = thread_counts(status)
+            extra = f"{nreads} reads -> {nlinks} links; "
+        elif name.startswith("contigs"):
+            extra = (f"{data.count(b'>')} contigs"
+                     f"{', lf.conf headers' if b'lf.conf' in data else ''}"
+                     f"{', seeded from unused links' if b'seedpath' in data else ''}; ")
+        elif "links OK" not in status:
+            fail("check -p did not report the links OK")
+        print(f"link command {name} (k={K_MAIN}, 2 colours, cleaned): "
+              f"{extra}{len(data)} bytes out, CUDA == CPU; "
+              f"wall {wcard:.3f}s on the card (launches "
+              f"{json.dumps(launched)}), {wcpu:.3f}s on "
+              f"the CPU")
 
+
+def phase_read_cmds(tmp, genome):
+    """5e: thread -2 and -i of 2048 fragments of colour a's genome, links
+    -c -l -T -H -P -L on those links, reads -1/-2/-i (and -v) and
+    coverage -e -E of phase 5d's 4096 reads and the pairs, and correct
+    -1/-2/-i (-F fastq, -W, -p; 512 reads and 256 pairs) on the cleaned
+    2-colour graph of phase 5, on the card and on the CPU: the same
+    bytes and status."""
+    cln = os.path.join(tmp, "cuda_c.ctx")
+    se = os.path.join(tmp, "c0_4k.fq")             # phase 5d's reads
+    m1, m2, _fs, _fl = pe_library(genome, 2048, seed=7)
+    r1, r2, il = (os.path.join(tmp, f"p5_{n}.fq") for n in ("1", "2", "il"))
+    write_fastq(r1, m1)
+    write_fastq(r2, m2)
+    inter = np.empty((2 * len(m1), m1.shape[1]), np.uint8)
+    inter[0::2], inter[1::2] = m1, m2
+    write_fastq(il, inter)
+    # correct takes 512 single reads and 256 pairs (the gap walks of
+    # correct and thread -2 are the same code)
+    se_few, q1, q2, qi = (os.path.join(tmp, f"p5_{n}.fq")
+                          for n in ("se_few", "q1", "q2", "qi"))
+    write_fastq(q1, m1[:256])
+    write_fastq(q2, m2[:256])
+    write_fastq(qi, inter[:512])
+    with open(se, "rb") as src, open(se_few, "wb") as dst:
+        for _ in range(4 * 512):
+            dst.write(src.readline())
+    pe = os.path.join(tmp, "p5_links.ctp.gz")
+    o = os.path.join(tmp, "p5_out")
+    lim = ["-L", str(FRAG_MAX)]
+    cases = (
+        ("thread -2", ["thread", "-2", r1, r2] + lim + ["-o", o, cln]),
+        ("thread -i -W", ["thread", "-i", il, "-W"] + lim
+         + ["-o", o, cln]),
+        ("links -c -l -T -H -P -L",
+         ["links", "-c", "2", "-l", o + ".l", "-T", o + ".t", "-H",
+          o + ".h", "-P", o + ".p", "-L", "50", "-o", o, cln, pe]),
+        ("reads -1 -2 -i", ["reads", "-1", f"{se}:{o}", "-2",
+                            f"{r1}:{r2}:{o}.pe", "-i", f"{il}:{o}.il",
+                            cln]),
+        ("reads -v", ["reads", "-v", "-F", "fasta", "-1", f"{se}:{o}",
+                      "-i", f"{il}:{o}.il", cln]),
+        ("coverage -e -E", ["coverage", "-1", se, "-e", "-E", "-o", o,
+                            cln]),
+        ("correct -1 -2 -i -F fastq -W -p",
+         ["correct", "-1", f"{se_few}:{o}", "-2", f"{q1}:{q2}:{o}.pe",
+          "-i", f"{qi}:{o}.il", "-F", "fastq", "-W", "-p", pe] + lim
+         + [cln]))
+    for name, argv in cases:
+        files, _t, status, wcard, wcpu, launched = same_on_both(
+            name, argv, [o])
+        if name == "thread -2":
+            os.replace(o, pe)
+            m = re.search(r"threaded \d+ reads \+ (\d+) pairs -> (\d+) "
+                          r"links", status)
+            if not m or int(m.group(1)) != 2048 or int(m.group(2)) <= 0:
+                fail("thread -2 did not thread its 2048 pairs into links")
+        print(f"read command {name} (k={K_MAIN}, 2 colours, cleaned): "
+              f"{len(files)} files, {sum(map(len, files.values()))} "
+              f"bytes out, CUDA == CPU; "
+              f"{'; '.join(ln[7:] for ln in status.splitlines() if ln.startswith('[mctx] ') and 'memory' not in ln)}; "
+              f"wall {wcard:.3f}s on the card (launches "
+              f"{json.dumps(launched)}), {wcpu:.3f}s on the CPU")
 
 
 def main():
@@ -2391,7 +2746,8 @@ def main():
 
     with tempfile.TemporaryDirectory() as tmp:
         # 4. the build path at real size, under every sort engine
-        by_engine, genome, reads, raw = phase_main_path(torch, tmp, card)
+        by_engine, genome, reads, starts, raw = phase_main_path(torch, tmp,
+                                                                card)
         phase_paired(torch, tmp, card, genome, reads)
         elapsed("4 build")
         # 4b. clean and unitigs on its graph
@@ -2408,7 +2764,12 @@ def main():
         lookups_4e = phase_links(torch, tmp, card, genome, reads,
                                  os.path.join(tmp, "reads.fq"), linkless_n50)
         elapsed("4e")
-        del genome, reads
+        # 4f. paired-end links, link cleaning, correction, reads, coverage
+        lookups_4f = phase_reads_correct(torch, tmp, card, genome, reads,
+                                         starts,
+                                         os.path.join(tmp, "reads.fq"))
+        elapsed("4f")
+        del genome, reads, starts
         torch.cuda.empty_cache()
         # 5. CUDA and CPU outputs byte for byte
         phase_byte_identity(torch, tmp)
@@ -2417,12 +2778,12 @@ def main():
     # launches on the main path: the build's kernels from the E. coli build
     # under the default engine, the sort kernels from the build under the
     # engine that runs them, the lookup kernel from clean + unitigs, from
-    # contigs + inferedges + subgraph and from thread + check -p +
-    # contigs -p
+    # contigs + inferedges + subgraph, from thread + check -p +
+    # contigs -p and from thread -2, links, correct, reads and coverage
     launches = {"frontend": by_engine["lax"]["frontend"],
                 "segreduce": by_engine["lax"]["segreduce"],
                 "mergepath": by_engine["lax"]["mergepath"],
-                "lookup": lookups + lookups_4d + lookups_4e,
+                "lookup": lookups + lookups_4d + lookups_4e + lookups_4f,
                 "mergelevel": by_engine["mp"]["mergelevel"],
                 "bitonic_blocksort": by_engine["mp"]["bitonic_blocksort"],
                 "bitonic_tail": by_engine["bitonic"]["bitonic_tail"],
@@ -2443,7 +2804,8 @@ def main():
     lax = by_engine["lax"]
     results["lookup"].update(launches_clean_unitigs=lookups,
                              launches_graph_walks=lookups_4d,
-                             launches_links=lookups_4e)
+                             launches_links=lookups_4e,
+                             launches_reads_correct=lookups_4f)
     results["segreduce"].update(launches_epoch=lax["frontend"],
                                 launches_merge=lax["segreduce"]
                                 - lax["frontend"])

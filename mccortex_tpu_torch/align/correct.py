@@ -530,6 +530,62 @@ def _splice_read(g, k, bases_row, runs, fills, idx, orient, lastb,
     return CorrectedRead(verts, seq, disp, ngaps, nfixed)
 
 
+def correct_pairs(g: gstore.DBGraph, links, codes1: np.ndarray,
+                  codes2: np.ndarray, colour: int | None = 0,
+                  frag_len_min: int = FRAG_LEN_MIN,
+                  frag_len_max: int = FRAG_LEN_MAX,
+                  one_way: bool = True,
+                  max_context: int = MAX_CONTEXT,
+                  end_check: bool = True,
+                  aln_stats: CorrectAlnStats | None = None):
+    """Paired-end correction (ref ctx_correct --seq2): the mates are laid
+    out as one fragment row (r1 + a break + revcomp(r2)) so that gap
+    bridging uses the pair's context across the insert, then each mate's
+    corrected sequence is spliced out of its own half (the insert bridge
+    anchors but is not emitted).  Returns (mates1, mates2), mate 2 in
+    its own (reverse-strand) orientation again."""
+    from ..utils.dna import revcomp
+    rows, mate_col = lthread.pair_to_rows(codes1, codes2)
+    if aln_stats is None:
+        aln_stats = CorrectAlnStats()
+    res = correct_batch(g, links, rows, colour=colour,
+                        mate_col=mate_col, frag_len_min=frag_len_min,
+                        frag_len_max=frag_len_max, one_way=one_way,
+                        max_context=max_context, end_check=end_check,
+                        aln_stats=aln_stats, _return_parts=True)
+    idx, orient, runs_by_read, fills, lastb, okm_all, P = res
+    k = g.k
+    out1, out2 = [], []
+    for b in range(rows.shape[0]):
+        runs = runs_by_read[b]
+        r1 = _splice_read(g, k, rows[b], runs, fills, idx, orient,
+                          lastb, okm_all, b, P, aln_stats,
+                          p_lo=0, p_hi=mate_col - k + 1,
+                          col_lo=0, col_hi=mate_col)
+        r2f = _splice_read(g, k, rows[b], runs, fills, idx, orient,
+                           lastb, okm_all, b, P, aln_stats,
+                           p_lo=mate_col + 1, p_hi=P,
+                           col_lo=mate_col + 1, col_hi=len(rows[b]))
+        out1.append(r1)
+        # mate 2 was reverse-complemented into the row: restore it
+        v2 = r2f.verts[::-1].copy()
+        v2[v2 >= 0] ^= 1
+        out2.append(CorrectedRead(
+            verts=v2, seq=revcomp(r2f.seq),
+            display=_rc_display(r2f.display),
+            ngaps=r2f.ngaps, nfixed=r2f.nfixed))
+    return out1, out2
+
+
+def _rc_display(disp: str) -> str:
+    """Reverse-complement a display string, keeping each base's case."""
+    from ..utils.dna import revcomp
+    rc = revcomp(disp.upper())
+    cases = [c.islower() for c in disp][::-1]
+    return "".join(ch.lower() if lo else ch
+                   for ch, lo in zip(rc, cases))
+
+
 def _codes_to_str(codes) -> str:
     return _BASE_CHARS[np.minimum(np.asarray(codes, np.int64), 4)
                        ].tobytes().decode()

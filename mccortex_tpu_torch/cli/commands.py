@@ -1,8 +1,9 @@
 """mctx-torch subcommands (counterpart of mccortex_tpu/cli/commands.py):
 build (all of `mctx build` on one device), view, check (with -p),
 clean, unitigs, inferedges, contigs (linkless and linked), pview and
-thread (single-end).  The commands of mccortex_tpu/cli/commands2.py are
-in commands2.py.
+thread (single-end and paired).  The commands of
+mccortex_tpu/cli/commands2.py and commands3.py are in commands2.py and
+commands3.py.
 """
 
 from __future__ import annotations
@@ -819,7 +820,7 @@ def cmd_pview(argv):
 
 
 # ---------------------------------------------------------------------------
-# thread (ref: src/commands/ctx_thread.c), single-end
+# thread (ref: src/commands/ctx_thread.c)
 # ---------------------------------------------------------------------------
 
 def cmd_thread(argv):
@@ -838,13 +839,14 @@ def cmd_thread(argv):
     p.add_argument("--no-gap-fill", dest="gap_fill", action="store_false")
     p.add_argument("-2", "--seq2", action="append", nargs=2, default=[],
                    metavar=("R1", "R2"),
-                   help="paired-end read files (not yet ported)")
+                   help="paired-end read files (mates joined across the "
+                        "insert, ref ctx_thread.c -2)")
     p.add_argument("-i", "--seqi", action="append", default=[],
-                   help="interleaved paired-end reads (not yet ported)")
+                   help="interleaved paired-end reads in one file "
+                        "(ref ctx_thread.c -i)")
     p.add_argument("-M", "--matepair", default="FR",
                    choices=["FF", "FR", "RF", "RR"],
-                   help="mate pair orientation [default: FR]; no effect "
-                        "on single-end reads")
+                   help="mate pair orientation [default: FR]")
     p.add_argument("-O", "--fq-offset", type=int, default=0,
                    help="FASTQ ASCII offset: 33/64 [default: 0 = auto]")
     p.add_argument("-H", "--cut-hp", type=int, default=0,
@@ -865,11 +867,11 @@ def cmd_thread(argv):
                         "granularity)")
     p.add_argument("-L", "--max-frag-len", "--frag-len", type=int,
                    dest="frag_len", default=1000,
-                   help="max fragment length (no effect on single-end "
-                        "reads)")
+                   help="max fragment length for insert-gap bridging "
+                        "(ref ctx_thread.c -L)")
     p.add_argument("-l", "--min-frag-len", type=int, default=0,
-                   help="min fragment length (no effect on single-end "
-                        "reads)")
+                   help="min fragment length for --seq2/--seqi "
+                        "(ref ctx_thread.c -l)")
     p.add_argument("-w", "--one-way", dest="one_way",
                    action="store_true", default=True,
                    help="one-way gap filling (conservative, default)")
@@ -879,8 +881,7 @@ def cmd_thread(argv):
     p.add_argument("-g", "--gap-hist", default=None,
                    help="save gap size distribution CSV")
     p.add_argument("-G", "--frag-hist", default=None,
-                   help="save fragment size distribution CSV (empty for "
-                        "single-end reads)")
+                   help="save PE fragment size distribution CSV")
     p.add_argument("-Q", "--fq-cutoff", type=int, default=0,
                    help="mask bases with quality < Q before threading")
     p.add_argument("-d", "--gap-diff-const", type=float, default=5,
@@ -898,22 +899,17 @@ def cmd_thread(argv):
     p.add_argument("ctx")
     add_common(p)
     args = p.parse_args(_expand_pe_colon(argv))
-    if args.seq2:
-        _not_ported(p, "-2/--seq2 (paired-end threading)")
-    if args.seqi:
-        _not_ported(p, "-i/--seqi (paired-end threading)")
     if devices_arg(args) > 1:
         _not_ported(p, "--devices above 1")
     status, device = apply_common(args, args.out, args.gap_hist,
                                   args.frag_hist)
-    if not args.seq:
+    if not args.seq and not args.seq2 and not args.seqi:
         p.error("at least one --seq/--seq2/--seqi required")
     if args.fq_offset not in (0, 33, 64):
         p.error("--fq-offset must be 33 or 64 (0 = auto)")
     timing.SPANS.clear()
     import dataclasses
     from ..align.correct import CorrectAlnStats
-    from ..graph import build as gbuild
     from ..io import ctp as ctpio
     from ..io import seqio
     from ..links import store as lstore
@@ -923,17 +919,9 @@ def cmd_thread(argv):
     stats = lthread.ThreadStats(ncols)
     aln_stats = CorrectAlnStats()
 
-    def _mask_q(codes, quals):
-        if (args.fq_cutoff and quals is not None) or args.cut_hp:
-            return gbuild.mask_reads(
-                torch.from_numpy(codes),
-                torch.from_numpy(quals) if quals is not None else None,
-                fq_cutoff=args.fq_cutoff if quals is not None else 0,
-                hp_cutoff=args.cut_hp).numpy()
-        return codes
-
     with timing.span("read"):
-        batches = [(_mask_q(codes, quals), args.colour)
+        batches = [(_mask_reads(codes, quals, args.fq_cutoff, args.cut_hp),
+                    args.colour)
                    for codes, quals, _ in seqio.read_batches(
                        args.seq, fq_offset=args.fq_offset)]
     if args.print_reads:
@@ -955,8 +943,10 @@ def cmd_thread(argv):
                 gap_wiggle=args.gap_diff_const,
                 max_context=args.max_context, end_check=args.end_check,
                 use_new_paths=args.use_new_paths, aln_stats=aln_stats)
-        else:
+        elif batches:
             links = lthread.thread_reads(g, batches, ncols, stats=stats)
+        else:
+            links = None
     if args.print_contigs:
         for bcodes, _c in batches:
             idx, orient, valid = (
@@ -974,6 +964,34 @@ def cmd_thread(argv):
                 if run:
                     segs.append(" ".join(run))
                 print(f"contig[{b}]: " + " | ".join(segs))
+    # pairs: mates joined across the insert through the graph, then
+    # threaded as one path (ref generate_paths in PE mode); -d/-D apply to
+    # single reads only, as in mctx
+    npe = 0
+    if args.seq2 or args.seqi:
+        with timing.span("read"):
+            pair_batches = []
+            for r1, r2 in args.seq2:
+                for c1, c2, _ in seqio.read_batches_pe(
+                        r1, r2, colour=args.colour, matedir=args.matepair,
+                        fq_offset=args.fq_offset):
+                    pair_batches.append((c1, c2, args.colour))
+                    npe += c1.shape[0]
+            # mctx's status line counts the pairs of -2 only
+            for fi in args.seqi:
+                for c1, c2, _q1, _q2, _ in seqio.read_batches_interleaved(
+                        fi, colour=args.colour, matedir=args.matepair,
+                        fq_offset=args.fq_offset):
+                    pair_batches.append((c1, c2, args.colour))
+        with timing.span("thread", device):
+            pe_links = lthread.thread_reads_pe(
+                g, pair_batches, ncols, links_prev=prev,
+                frag_len_min=args.min_frag_len, frag_len_max=args.frag_len,
+                stats=stats, one_way=args.one_way,
+                max_context=args.max_context, end_check=args.end_check,
+                aln_stats=aln_stats)
+        links = pe_links if links is None else lstore.merge_stores(
+            links, pe_links, g.capacity)
     prev_commands = []
     if args.paths:
         if args.zero_paths:
@@ -989,7 +1007,7 @@ def cmd_thread(argv):
                         phdr, c).items():
                     stats.add_contig(c, lng, cnt)
     status(f"threaded {sum(b.shape[0] for b, _ in batches)} reads + "
-           f"0 pairs -> {links.nlinks} links")
+           f"{npe} pairs -> {links.nlinks} links")
     if aln_stats.num_gap_attempts:
         status("[CorrectAln] " + aln_stats.summary())
     if args.gap_hist:
@@ -1021,6 +1039,20 @@ def cmd_thread(argv):
 
 
 _BASE_CHARS = np.frombuffer(b"ACGTN", np.uint8)
+
+
+def _mask_reads(codes, quals, fq_cutoff, hp_cutoff):
+    """Host base codes with low-quality bases (-Q, where the reads have
+    qualities) and long homopolymers (-H) set to N; unchanged when
+    neither applies."""
+    if (fq_cutoff and quals is not None) or hp_cutoff:
+        from ..graph import build as gbuild
+        return gbuild.mask_reads(
+            torch.from_numpy(codes),
+            torch.from_numpy(quals) if quals is not None else None,
+            fq_cutoff=fq_cutoff if quals is not None else 0,
+            hp_cutoff=hp_cutoff).numpy()
+    return codes
 
 
 def _without_device(argv) -> list:

@@ -1,11 +1,14 @@
 """mctx-torch subcommands of mccortex_tpu/cli/commands2.py: subgraph,
-join, pjoin, dist, sort, index, uniqkmers, rmsubstr.  join rebuilds its
-store on the device (graph/store.from_records: the sort and segreduce
-kernels on the card) and intersects through the batched lookup;
+join, pjoin, dist, sort, index, uniqkmers, rmsubstr, reads, coverage.
+join rebuilds its store on the device (graph/store.from_records: the
+sort and segreduce kernels on the card) and intersects through the
+batched lookup;
 subgraph probes its seed kmers through the lookup and walks the
 adjacency; dist and sort run on the device; pjoin merges link files
 (io/ctp.py, links/store.py); index, uniqkmers and rmsubstr are host
-code.
+code; reads and coverage map reads to node paths through the batched
+lookup (links/thread.reads_to_node_paths), one lookup per padded read
+length.
 """
 
 from __future__ import annotations
@@ -18,8 +21,10 @@ import sys
 import numpy as np
 import torch
 
-from .commands import _load_graph, _load_graphs, _save_graph, intersect_store
-from .common import add_common, apply_common, check_kmer, parse_size
+from .commands import (_load_graph, _load_graphs, _not_ported, _save_graph,
+                       intersect_store)
+from .common import (add_common, apply_common, check_kmer, check_outfile,
+                     devices_arg, parse_size)
 
 
 # ---------------------------------------------------------------------------
@@ -467,4 +472,283 @@ def cmd_rmsubstr(argv):
     finally:
         out.close()
     status(f"rmsubstr: kept {len(kept)}/{len(reads)}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# reads (ref ctx_reads.c): filter reads by graph membership
+# ---------------------------------------------------------------------------
+
+# reads a lookup batch of `reads` and `coverage`
+_CHUNK = 4096
+
+
+def _pow2_len(n: int) -> int:
+    """The padded row length of a read of n bases: the next power of two
+    (a few fixed shapes over a whole run, as in the JAX package)."""
+    return 1 << max(n - 1, 1).bit_length()
+
+
+def _codes(seq: str) -> np.ndarray:
+    from ..constants import CHAR_TO_BASE
+    return CHAR_TO_BASE[np.frombuffer(seq.encode(), np.uint8)]
+
+
+def _chunks(it, n: int):
+    """Lists of n items of `it` (the last may be shorter)."""
+    buf = []
+    for x in it:
+        buf.append(x)
+        if len(buf) >= n:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
+
+
+def _node_paths_by_length(g, seqs, rows):
+    """Node paths of the sequences seqs[i] for i in rows (each at least k
+    bases), one batched lookup per padded length: yields (rows of the
+    bucket, idx, orient, valid) host arrays."""
+    from ..links import thread as lthread
+    buckets = {}
+    for i in rows:
+        buckets.setdefault(_pow2_len(len(seqs[i])), []).append(i)
+    for L, idxs in buckets.items():
+        arr = np.full((len(idxs), L), 4, np.uint8)
+        for r, i in enumerate(idxs):
+            arr[r, :len(seqs[i])] = _codes(seqs[i])
+        idx, orient, valid = lthread.reads_to_node_paths(g, arr, g.k)
+        yield idxs, idx.cpu().numpy(), orient.cpu().numpy(), \
+            valid.cpu().numpy()
+
+
+def _reads_touch_graph(g, reads) -> np.ndarray:
+    """True per read iff any of its kmers is in the graph: one lookup per
+    padded length (on a CUDA store, the lookup kernel)."""
+    out = np.zeros(len(reads), bool)
+    seqs = [rd.seq for rd in reads]
+    rows = [i for i, s in enumerate(seqs) if len(s) >= g.k]
+    for idxs, _idx, _orient, valid in _node_paths_by_length(g, seqs, rows):
+        out[np.asarray(idxs)] = valid.any(axis=1)
+    return out
+
+
+def cmd_reads(argv):
+    p = argparse.ArgumentParser(
+        prog="mctx-torch reads",
+        description="filter reads by graph membership (ref ctx_reads.c); "
+                    "a pair is kept when EITHER mate touches the graph")
+    p.add_argument("-1", "--seq", action="append", default=[],
+                   help="<in>[:<O>] — write kept reads to <O>.fq.gz "
+                        "(plain <in> uses -o)")
+    p.add_argument("-2", "--seq2", action="append", default=[],
+                   help="<in1>:<in2>:<O> — paired output <O>.{1,2}.fq.gz")
+    p.add_argument("-i", "--seqi", action="append", default=[],
+                   help="<in>:<O> — interleaved pairs, output "
+                        "<O>.{1,2}.fq.gz")
+    p.add_argument("-F", "--format", default="fastq",
+                   type=lambda s: s.lower(),
+                   choices=["fasta", "fastq"],
+                   help="output format [default: FASTQ, ref ctx_reads.c]")
+    p.add_argument("-o", "--out", default=None,
+                   help="output for plain --seq inputs")
+    p.add_argument("-v", "--invert", action="store_true",
+                   help="keep reads/pairs with NO kmer in graph")
+    p.add_argument("-t", "--threads", type=int, default=None,
+                   help="accepted for parity")
+    p.add_argument("--devices", default=None,
+                   help="devices to run on; more than 1 is not yet ported")
+    p.add_argument("ctx")
+    add_common(p, memory=True, nkmers=True)
+    args = p.parse_args(argv)
+    if devices_arg(args) > 1:
+        _not_ported(p, "--devices above 1")
+    status, device = apply_common(args)
+    from ..io import seqio
+    from ..utils import timing
+    timing.SPANS.clear()
+    h, g = _load_graph(args.ctx, device)
+    ext = ".fq.gz" if args.format == "fastq" else ".fa.gz"
+    kept = total = 0
+
+    def _filter_se(path, wr):
+        nonlocal kept, total
+        for rds in _chunks(seqio.parse_reads(path), _CHUNK):
+            total += len(rds)
+            with timing.span("lookup", device):
+                touch = _reads_touch_graph(g, rds)
+            for rd, t in zip(rds, touch):
+                if bool(t) != args.invert:
+                    wr.write(rd)
+                    kept += 1
+
+    for spec in args.seq:
+        if ":" in spec:
+            path, obase = spec.rsplit(":", 1)
+            check_outfile(obase + ext, args.force)
+            wr = _SeqWriter(obase + ext, args.format)
+        else:
+            if not args.out:
+                p.error(f"--seq {spec}: give <in>:<out> or -o")
+            check_outfile(args.out, args.force)
+            fmt = args.format
+            if not args.out.endswith(".gz") and not any(
+                    args.out.endswith(e) for e in (".fq", ".fastq")):
+                fmt = "fasta" if args.out.endswith((".fa", ".fasta")) \
+                    else args.format
+            wr = _SeqWriter(args.out, fmt)
+            path = spec
+        _filter_se(path, wr)
+        wr.close()
+
+    def _filter_pairs(pair_iter, obase):
+        nonlocal kept, total
+        w1 = _SeqWriter(obase + ".1" + ext, args.format)
+        w2 = _SeqWriter(obase + ".2" + ext, args.format)
+        for pairs in _chunks(pair_iter, _CHUNK):
+            total += 2 * len(pairs)
+            with timing.span("lookup", device):
+                t1 = _reads_touch_graph(g, [q[0] for q in pairs])
+                t2 = _reads_touch_graph(g, [q[1] for q in pairs])
+            for (r1, r2), t in zip(pairs, t1 | t2):
+                if bool(t) != args.invert:
+                    w1.write(r1)
+                    w2.write(r2)
+                    kept += 2
+        w1.close()
+        w2.close()
+
+    for spec in args.seq2:
+        try:
+            in1, in2, obase = spec.rsplit(":", 2)
+        except ValueError:
+            p.error(f"--seq2 needs <in1>:<in2>:<out>: {spec}")
+        check_outfile(obase + ".1" + ext, args.force)
+        check_outfile(obase + ".2" + ext, args.force)
+        _filter_pairs(zip(seqio.parse_reads(in1), seqio.parse_reads(in2)),
+                      obase)
+    for spec in args.seqi:
+        try:
+            in1, obase = spec.rsplit(":", 1)
+        except ValueError:
+            p.error(f"--seqi needs <in>:<out>: {spec}")
+        check_outfile(obase + ".1" + ext, args.force)
+        check_outfile(obase + ".2" + ext, args.force)
+
+        def _pairs(path):
+            it = seqio.parse_reads(path)
+            while True:
+                try:
+                    r1 = next(it)
+                    r2 = next(it)
+                except StopIteration:
+                    return
+                yield r1, r2
+        _filter_pairs(_pairs(in1), obase)
+    if not (args.seq or args.seq2 or args.seqi):
+        p.error("at least one -1/--seq, -2/--seq2 or -i/--seqi required")
+    status(f"kept {kept}/{total} reads")
+    status(f"time split: {timing.summary()}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# coverage (ref ctx_coverage.c)
+# ---------------------------------------------------------------------------
+
+_DEGREE_SYMBOLS = [".", "/", "[", "\\", "-", "{", "]", "}", "X"]
+_POPC4 = np.array([bin(x).count("1") for x in range(16)])
+
+
+def cmd_coverage(argv):
+    """Per-kmer coverage of each read, one line per colour (edges with
+    -e, in/out degree symbols with -E).  The reads of a chunk that pad to
+    one length share one lookup, where mctx makes one a read: the text
+    is the same."""
+    p = argparse.ArgumentParser(prog="mctx-torch coverage")
+    p.add_argument("-1", "-s", "--seq", action="append", required=True)
+    p.add_argument("-e", "--edges", action="store_true",
+                   help="print edges too (hex nibbles)")
+    p.add_argument("-E", "--degree", "--degrees", action="store_true",
+                   help="print in/out degree per kmer: 00. 01/ 02[ "
+                        "10\\ 11- 12{ 20] 21} 22X (ref ctx_coverage -E)")
+    p.add_argument("-o", "--out", default="-")
+    p.add_argument("-t", "--threads", type=int, default=None,
+                   help="accepted for parity")
+    p.add_argument("--devices", default=None,
+                   help="devices to run on; more than 1 is not yet ported")
+    p.add_argument("ctx", nargs="+")
+    add_common(p, memory=True, nkmers=True)
+    args = p.parse_args(argv)
+    if devices_arg(args) > 1:
+        _not_ported(p, "--devices above 1")
+    status, device = apply_common(args, args.out)
+    from ..io import seqio
+    from ..utils import timing
+    from ..utils.text import edges_to_strings
+    timing.SPANS.clear()
+    h, g = _load_graphs(args.ctx, device)
+    k = g.k
+    covg = g.covg.cpu().numpy().view(np.uint32)
+    edges = g.edges.cpu().numpy()
+    out = sys.stdout if args.out == "-" else open(args.out, "w")
+
+    def _write_read(name, n, paths):
+        out.write(f">{name}\n")
+        if n < k:
+            out.write("\n")
+            return
+        idxn, orn, vn = paths
+        npos = n - k + 1
+        idxn, orn, vn = idxn[:npos], orn[:npos], vn[:npos]
+        rows = np.where(vn, idxn, 0)
+        for c in range(h.ncols):
+            vals = np.where(vn, covg[rows, c], 0)
+            out.write(" ".join(map(str, vals.tolist())) + "\n")
+        if args.edges or args.degree:
+            e_read = edges[rows]                   # (npos, C)
+            # the edge byte along the read (ref fetch_node_edges: the
+            # reverse orientation swaps the nibbles)
+            rev = orn == 1
+            e_or = np.where(rev[:, None],
+                            ((e_read >> 4) | (e_read << 4)).astype(np.uint8),
+                            e_read)
+            e_or = np.where(vn[:, None], e_or, 0)
+        if args.edges:
+            for c in range(h.ncols):
+                estrs = edges_to_strings(e_or[:, c:c + 1])
+                out.write(" ".join(
+                    estrs[i][0] if vn[i] else "........"
+                    for i in range(npos)) + "\n")
+        if args.degree:
+            for c in range(h.ncols):
+                eb = e_or[:, c]
+                ind = np.minimum(_POPC4[(eb >> 4) & 0xF], 2)
+                outd = np.minimum(_POPC4[eb & 0xF], 2)
+                out.write("".join(
+                    _DEGREE_SYMBOLS[3 * i_ + o_]
+                    for i_, o_ in zip(ind, outd)) + "\n")
+
+    def _chunk(rds):
+        seqs = [rd.seq for rd in rds]
+        paths = [None] * len(rds)
+        rows = [i for i, s in enumerate(seqs) if len(s) >= k]
+        with timing.span("lookup", device):
+            for idxs, idx, orient, valid in _node_paths_by_length(
+                    g, seqs, rows):
+                for r, i in enumerate(idxs):
+                    paths[i] = (idx[r], orient[r], valid[r])
+        with timing.span("write"):
+            for rd, pth in zip(rds, paths):
+                _write_read(rd.name, len(rd.seq), pth)
+
+    try:
+        for path in args.seq:
+            for rds in _chunks(seqio.parse_reads(path), _CHUNK):
+                _chunk(rds)
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    status(f"time split: {timing.summary()}")
     return 0

@@ -6,7 +6,7 @@ import sys
 
 
 def _commands() -> dict:
-    from . import commands, commands2
+    from . import commands, commands2, commands3
     return {"build": (commands.cmd_build, "reads -> coloured .ctx graph"),
             "view": (commands.cmd_view, "print graph info / kmers"),
             "check": (commands.cmd_check, "validate graph file integrity"),
@@ -33,7 +33,14 @@ def _commands() -> dict:
             "uniqkmers": (commands2.cmd_uniqkmers,
                           "emit unique kmers / flank seqs"),
             "rmsubstr": (commands2.cmd_rmsubstr,
-                         "remove duplicate/substring seqs")}
+                         "remove duplicate/substring seqs"),
+            "reads": (commands2.cmd_reads,
+                      "filter reads by graph membership"),
+            "coverage": (commands2.cmd_coverage,
+                         "per-kmer coverage of reads"),
+            "correct": (commands3.cmd_correct,
+                        "error-correct reads against the graph"),
+            "links": (commands3.cmd_links, "clean / inspect link files")}
 
 
 def main(argv=None):

@@ -17,7 +17,9 @@ over them is host code copied from the JAX package:
     in-junctions, in reverse order.
 
 Gap-filled threading (thread_reads_gapfill) bridges read gaps through
-the graph first (align/correct.py) and threads the bridged paths.
+the graph first (align/correct.py) and threads the bridged paths;
+paired-end threading (thread_reads_pe) bridges the insert between the
+mates of a pair the same way, so its links span whole fragments.
 """
 
 from __future__ import annotations
@@ -264,6 +266,20 @@ def paths_to_rows(paths: list):
     return idx, orient, valid
 
 
+def _thread_corrected(g, corrected, colour, edge_colour, stats):
+    """Link records of a batch of bridged reads (CorrectedRead list), or
+    None when it gives none; their path lengths go into stats."""
+    paths = [c.verts for c in corrected if len(c.verts)]
+    if not paths:
+        return None
+    if stats is not None:
+        stats.add_run_lengths(colour, [len(p) + g.k - 1 for p in paths])
+    idx, orient, valid = paths_to_rows(paths)
+    recs = thread_contigs(g, torch.from_numpy(idx), torch.from_numpy(orient),
+                          torch.from_numpy(valid), None, colour, edge_colour)
+    return recs if len(recs[0]) else None
+
+
 def thread_reads_gapfill(g: gstore.DBGraph, read_batches, ncols: int,
                          links_prev=None, edge_colour: int = 0,
                          stats=None, one_way: bool = True,
@@ -292,23 +308,57 @@ def thread_reads_gapfill(g: gstore.DBGraph, read_batches, ncols: int,
                 gap_variance=gap_variance, gap_wiggle=gap_wiggle,
                 max_context=max_context, end_check=end_check,
                 aln_stats=aln_stats)
-        paths = [c.verts for c in corrected if len(c.verts)]
-        if not paths:
-            continue
-        if stats is not None:
-            stats.add_run_lengths(colour,
-                                  [len(p) + g.k - 1 for p in paths])
-        idx, orient, valid = paths_to_rows(paths)
-        recs = thread_contigs(g, torch.from_numpy(idx),
-                              torch.from_numpy(orient),
-                              torch.from_numpy(valid), None, colour,
-                              edge_colour)
-        if len(recs[0]):
+        recs = _thread_corrected(g, corrected, colour, edge_colour, stats)
+        if recs is not None:
             all_recs.append(recs)
             if use_new_paths:
                 built = _store_from_recs(g, all_recs, ncols)
                 cur_links = built if links_prev is None else \
                     lstore.merge_stores(links_prev, built, g.capacity)
+    if not all_recs:
+        return lstore.empty(g.capacity, ncols, device=g.device)
+    with span("store", g.device):
+        return _store_from_recs(g, all_recs, ncols)
+
+
+def pair_to_rows(codes1: np.ndarray, codes2: np.ndarray):
+    """Lay mate pairs out as r1 + [invalid] + revcomp(r2) rows.  Returns
+    (rows (B, L1+1+L2) uint8, mate_col)."""
+    B, L1 = codes1.shape
+    _, L2 = codes2.shape
+    rc2 = np.where(codes2 < 4, 3 - codes2, 4)[:, ::-1]
+    rows = np.full((B, L1 + 1 + L2), 4, np.uint8)
+    rows[:, :L1] = codes1
+    rows[:, L1 + 1:] = rc2
+    return rows, L1
+
+
+def thread_reads_pe(g: gstore.DBGraph, pair_batches, ncols: int,
+                    links_prev=None, edge_colour: int = 0,
+                    frag_len_min: int = 0, frag_len_max: int = 1000,
+                    stats=None, one_way: bool = True,
+                    max_context: int | None = None,
+                    end_check: bool = True, aln_stats=None):
+    """Paired-end threading (ref generate_paths in PE mode): the mates of
+    each pair are joined through the graph across the insert gap
+    (correct_batch with mate_col), then the junctions of the joined
+    paths are extracted, so links span whole fragments."""
+    from ..align import correct as acorrect
+    if max_context is None:
+        max_context = acorrect.MAX_CONTEXT
+    all_recs = []
+    for codes1, codes2, colour in pair_batches:
+        rows, mate_col = pair_to_rows(codes1, codes2)
+        with span("gapfill", g.device):
+            corrected = acorrect.correct_batch(
+                g, links_prev, rows, colour=edge_colour,
+                mate_col=mate_col, frag_len_min=frag_len_min,
+                frag_len_max=frag_len_max, one_way=one_way,
+                max_context=max_context, end_check=end_check,
+                aln_stats=aln_stats)
+        recs = _thread_corrected(g, corrected, colour, edge_colour, stats)
+        if recs is not None:
+            all_recs.append(recs)
     if not all_recs:
         return lstore.empty(g.capacity, ncols, device=g.device)
     with span("store", g.device):

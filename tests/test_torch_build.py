@@ -240,10 +240,11 @@ def test_cli_multicolour_masked_build_matches_mctx(tmp_path, monkeypatch, k):
         assert covg[:, 0].sum() > 0
 
 
-# `check -p` is ported (tests/test_torch_links_cli.py); paired-end
-# threading is still refused
-@pytest.mark.parametrize("flag", [["thread", "-i", "reads.fq", "-o",
-                                   "links.ctp"],
+# `check -p` and paired-end threading are ported (tests/test_torch_
+# {links_cli,correct}.py); more than one device is still refused, also
+# by the commands ported last
+@pytest.mark.parametrize("flag", [["correct", "--devices", "2", "--seq",
+                                   "reads.fq", "-o", "fixed.fa"],
                                   ["build", "--devices", "2"]])
 def test_cli_rejects_flags_not_ported(tmp_path, flag, capsys):
     fa, _ = _write_inputs(tmp_path)

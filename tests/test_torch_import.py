@@ -17,7 +17,8 @@ import mccortex_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
-for n in ("links.thread", "links.walk", "links.check", "align.correct"):
+for n in ("links.thread", "links.walk", "links.check", "align.correct",
+          "links.link_tree", "cli.commands3"):
     assert pkg.__name__ + "." + n in names, n
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "triton"))
@@ -37,7 +38,7 @@ def test_every_module_imports_without_jax(tmp_path):
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 53      # ... incl. links.{thread,walk,check}, align
+    assert n_modules >= 55      # ... incl. links.link_tree, cli.commands3
 
 
 def _sources(exts):

@@ -787,7 +787,7 @@ def link_inputs(tmp_path_factory):
     with open(fq, "w") as fh:
         for i, r in enumerate(reads):
             fh.write(f">r{i}\n" + "".join("ACGT"[c] for c in r) + "\n")
-    p = {"d": d, "ctx": str(d / "g.ctx"), "seq": fq}
+    p = {"d": d, "ctx": str(d / "g.ctx"), "seq": fq, "genome": genome}
     assert main(["build", "-k", "31", "-s", "s", "--seq", fa, p["ctx"],
                  "--device", "cpu", "-q"]) == 0
     p["ctp"] = str(d / "l.ctp.gz")
@@ -827,5 +827,83 @@ def test_link_command_on_card_matches_cpu(cuda, link_inputs, monkeypatch,
         got[dev] = (_text_of(out) if "OUT" in cmd else b"", err,
                     dict(_build.LAUNCHES))
     assert got["cuda"][:2] == got["cpu"][:2]
+    assert got["cuda"][2].get("lookup", 0) > 0
+    assert not got["cpu"][2].get("lookup", 0)
+
+
+@pytest.fixture(scope="module")
+def pair_inputs(link_inputs):
+    """256 FR pairs of 100 bp from fragments of 300-400 bp of the
+    link_inputs genome with 0.5 % substitutions, as two FASTA files and
+    one interleaved file, and the first 100 reads of link_inputs."""
+    p = dict(link_inputs)
+    d, genome = p["d"], p["genome"]
+    rng = np.random.default_rng(14)
+    flen = rng.integers(300, 401, 256)
+    starts = rng.integers(0, len(genome) - 400, 256)
+    m1 = np.stack([genome[s:s + 100] for s in starts])
+    m2 = np.stack([3 - genome[s + f - 100:s + f][::-1]
+                   for s, f in zip(starts, flen)])
+    m1 = np.where(rng.random(m1.shape) < 0.005, (m1 + 1) % 4, m1)
+    m2 = np.where(rng.random(m2.shape) < 0.005, (m2 + 1) % 4, m2)
+    names = {n: str(d / n) for n in ("r1.fa", "r2.fa", "il.fa", "q100.fa")}
+    with open(names["r1.fa"], "w") as f1, open(names["r2.fa"], "w") as f2, \
+            open(names["il.fa"], "w") as fi:
+        for i, (a, b) in enumerate(zip(m1, m2)):
+            sa = "".join("ACGT"[c] for c in a)
+            sb = "".join("ACGT"[c] for c in b)
+            f1.write(f">p{i}/1\n{sa}\n")
+            f2.write(f">p{i}/2\n{sb}\n")
+            fi.write(f">p{i}/1\n{sa}\n>p{i}/2\n{sb}\n")
+    with open(p["seq"]) as src, open(names["q100.fa"], "w") as dst:
+        dst.write("".join(src.readlines()[:200]))
+    p.update({k.split(".")[0].upper(): v for k, v in names.items()})
+    return p
+
+
+@pytest.mark.parametrize("cmd", [
+    ["thread", "-2", "R1", "R2", "-o", "OUT", "CTX"],
+    ["thread", "-i", "IL", "-W", "--seq", "Q100", "-o", "OUT", "CTX"],
+    ["links", "-c", "2", "-l", "OUT2", "-T", "OUT3", "-o", "OUT", "CTX",
+     "CTP"],
+    ["links", "-H", "OUT2", "-P", "OUT3", "-L", "5", "CTX", "CTP"],
+    ["reads", "--seq", "SEQ", "-o", "OUT", "CTX"],
+    ["reads", "-F", "fasta", "-1", "SEQ:OUT", "-2", "R1:R2:OUT2", "-i",
+     "IL:OUT3", "CTX"],
+    ["coverage", "-1", "Q100", "-e", "-E", "-o", "OUT", "CTX", "CTX"],
+    ["correct", "-1", "SEQ", "-o", "OUT", "CTX"],
+    ["correct", "-2", "R1", "R2", "-o", "OUT", "-p", "CTP", "-W", "CTX"],
+    ["correct", "-i", "IL:OUT", "-F", "fastq", "-L", "500", "CTX"]])
+def test_reads_correct_commands_on_card_match_cpu(cuda, pair_inputs,
+                                                 monkeypatch, capsys, cmd):
+    """thread -2/-i, links, reads, coverage and correct write the same
+    bytes (decompressed, the date fixed) and status from the card as
+    from the plain versions on the CPU, and launch the lookup kernel on
+    the card."""
+    import glob
+    import os
+    import re
+    import time
+    from mccortex_tpu_torch.cli.main import main
+    p = pair_inputs
+    monkeypatch.setattr(time, "strftime", lambda fmt, *a: "fixed")
+    outs = {f"OUT{i}".rstrip("1"): str(p["d"] / f"rc_out{i}")
+            for i in (1, 2, 3)}
+    sub = dict(outs, SEQ=p["seq"], CTX=p["ctx"], CTP=p["ctp"], R1=p["R1"],
+               R2=p["R2"], IL=p["IL"], Q100=p["Q100"])
+    argv = [":".join(sub.get(x, x) for x in a.split(":")) for a in cmd]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        for path in glob.glob(str(p["d"] / "rc_out*")):
+            os.remove(path)
+        _build.LAUNCHES.clear()
+        capsys.readouterr()
+        assert main(argv + ["--device", dev]) == 0
+        err = re.sub(r"time split: .*", "", capsys.readouterr().err)
+        files = {os.path.basename(f): _text_of(f)
+                 for f in sorted(glob.glob(str(p["d"] / "rc_out*")))}
+        got[dev] = (files, err, dict(_build.LAUNCHES))
+    assert got["cuda"][:2] == got["cpu"][:2]
+    assert got["cpu"][0] and all(len(v) for v in got["cpu"][0].values())
     assert got["cuda"][2].get("lookup", 0) > 0
     assert not got["cpu"][2].get("lookup", 0)

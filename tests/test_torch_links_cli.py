@@ -243,9 +243,6 @@ def test_check_p_matches_mctx(capsys, data):
 
 
 REFUSED = {
-    "seq2": ["thread", "-2", "A", "B", "-o", "o.ctp", "g.ctx"],
-    "seq2_colon": ["thread", "-2", "A:B", "-o", "o.ctp", "g.ctx"],
-    "seqi": ["thread", "-i", "A", "-o", "o.ctp", "g.ctx"],
     "thread_devices": ["thread", "--seq", "A", "--devices", "2", "-o",
                        "o.ctp", "g.ctx"],
     "contigs_devices": ["contigs", "-p", "l.ctp", "--devices", "2",
