@@ -87,7 +87,7 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    device operations per hop and the device's busy share;
 4e. links on that cleaned graph, through the CLI on the card: `thread
    --no-gap-fill` of all the reads, `thread` (gap filling) of the first
-   65,536 (half the 131,072 of scripts/scale_test.py, to stay in the
+   32,768 (a quarter of the 131,072 of scripts/scale_test.py, to stay in the
    time limit), `check -p` of both
    (0 bad links), `contigs -p -N 512` (one batch of 512 random seeds,
    not the whole graph, to stay in the time limit) with the first's
@@ -100,18 +100,35 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    and one `contigs -p` batch under torch.profiler: walker steps, device
    operations a step, the device's busy share;
 4f. paired-end links and read correction on that cleaned graph: a
-   library of 8,192 fragments of 400-500 bp drawn from the genome with
+   library of 4,096 fragments of 400-500 bp drawn from the genome with
    numpy (mate 1 the first 150 bp, mate 2 the reverse complement of the
    last 150 bp, 0.3 % substitutions); `thread -2` (gap-filled, -L 600)
    with `check -p` and 1000 of its links walked in numpy; one batch of
    2048 pairs under torch.profiler; `links -T -H -l`, then `links -c`
    at the suggested cutoff (every cleaned link a prefix of an input link
    at its kmer and orientation, no more links than before); `correct`
-   of 16,384 single reads and 4,096 pairs with those links (more reads
-   equal to their genome substring after than before); `reads` of all
-   the reads with and without -v (the kept counts those of a numpy
+   of 8,192 single reads and 2,048 pairs with those links (more reads
+   equal to their genome substring after than before); `reads` of the
+   first 131,072 reads with and without -v (the kept counts those of a numpy
    membership test); `coverage -e -E` of 4096 reads (every coverage the
    graph's, in numpy).  Each command must launch the lookup kernel;
+4g. variant calling on phase 4's genome: 500 SNPs and 50 indels of
+   1-10 bp planted with numpy (seed 7, at least 300 bp apart; a quarter
+   of the depth first planned, to stay in the time limit) in a
+   sample whose reads (20x of 150 bp, 0.3 % substitutions) are built and
+   cleaned (`clean -T -U`) as colour 0, the genome built as colour 1,
+   the two joined (`join`); then `bubbles -H 1`, `calls2vcf`,
+   `breakpoints -s` and its `calls2vcf`, `vcfcov -r`, `vcfgeno` and
+   `popbubbles` with `check` of the popped graph, each command that
+   reads the graph launching the lookup kernel.  Gates: every VCF
+   record's REF is the genome at POS; at least 90 % of the planted SNPs
+   outside the 15 repeat families called with their POS/REF/ALT; the
+   joined graph has a ref-only branch at each of those SNPs; popbubbles
+   pops at least one bubble into a graph with fewer kmers that `check`
+   passes.  Prints each command's wall and split, forks, walkers and
+   walker steps, one bubbles walk under torch.profiler (device
+   operations a step, busy share), and recall and false calls split
+   into SNPs and indels;
 5. byte identity: a 2-colour build of a 200 kb genome at k=31 and k=63
    (k=31 under every sort engine), colour a's reads as SAM, BAM and CRAM
    (each must give the FASTQ build's bytes), a --graph + --seq2 -p
@@ -127,14 +144,25 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    decompressed .ctp text (the date fixed); the inferred edges held to
    the numpy rule as in 4d;
 5d. on the cleaned 2-colour graph: `thread` (default, --no-gap-fill, -W,
-   -p with -0) of 4096 reads of colour a, `contigs -p` (-N 64; -P from
+   -p with -0) of 2048 reads of colour a, `contigs -p` (-N 64,
+   --max-len 150; -P from
    the links of 64 reads; -C 0.5 -G 200000) and `check -p`, on the card
    and on the CPU: the same decompressed .ctp text (the date fixed, only
    the generator masked), FASTA bytes and status lines;
 5e. `thread -2` and `thread -i -W` of 2048 fragments of colour a's
    genome, `links -c -l -T -H -P -L`, `reads -1/-2/-i` and `-v`,
    `coverage -e -E` and `correct -1/-2/-i -F fastq -W -p`, on the card
-   and on the CPU: the same bytes and status lines.
+   and on the CPU: the same bytes and status lines;
+5f. on the cleaned 2-colour graph of phase 5 (colour b carries 0.5 %
+   SNPs against colour a's genome): `bubbles`, `popbubbles`,
+   `calls2vcf` (-O vcf, bcf, vcfgz), `breakpoints` and its `calls2vcf`,
+   `vcfcov` and `vcfgeno`, on the card and on the CPU: the same bytes
+   (call files decompressed, `generator` masked) and status lines; the
+   commands that read the graph launch the lookup kernel on the card;
+5g. `mctx-torch pipeline` once on the card, on the 100 kb diploid case
+   of tests/test_pipeline_scale.py (its seeded simulation copied): every
+   truth variant and the 400 bp deletion in its VCF, GT in the
+   genotyped VCF.
 
 Prints a JSON line of per-kernel results (segreduce's launches split into
 the epochs' and the merges'), then `{"ok": true, "device":
@@ -279,6 +307,15 @@ def genome_and_reads(gsize: int, cov: float, seed: int, rlen: int = 150,
         for _ in range(24):
             p = int(rng.integers(0, gsize - ulen))
             genome[p:p + ulen] = unit
+    reads, starts = reads_of(genome, cov, rng, rlen, err)
+    return genome, reads, starts
+
+
+def reads_of(genome: np.ndarray, cov: float, rng, rlen: int = 150,
+             err: float = 0.003):
+    """(reads, starts): reads of `cov` x drawn uniformly from the genome,
+    with substitutions at rate `err`."""
+    gsize = len(genome)
     nreads = int(gsize * cov / rlen)
     starts = rng.integers(0, gsize - rlen, nreads)
     reads = np.lib.stride_tricks.sliding_window_view(
@@ -287,7 +324,22 @@ def genome_and_reads(gsize: int, cov: float, seed: int, rlen: int = 150,
     ei = rng.integers(0, nreads, nerr)
     ej = rng.integers(0, rlen, nerr)
     reads[ei, ej] = rng.integers(0, 4, nerr, dtype=np.uint8)
-    return genome, reads, starts
+    return reads, starts
+
+
+def repeat_mask(gsize: int, seed: int) -> np.ndarray:
+    """True over the copies of the repeat families genome_and_reads plants
+    (the same draws of its generator, in the same order)."""
+    rng = np.random.default_rng(seed)
+    rng.integers(0, 4, gsize, dtype=np.uint8)
+    mask = np.zeros(gsize, bool)
+    for _ in range(max(4, gsize // 300_000)):
+        ulen = int(rng.integers(500, 1500))
+        rng.integers(0, 4, ulen, dtype=np.uint8)
+        for _ in range(24):
+            p = int(rng.integers(0, gsize - ulen))
+            mask[p:p + ulen] = True
+    return mask
 
 
 def write_fastq(path: str, reads: np.ndarray, quals: np.ndarray | None = None):
@@ -1933,6 +1985,9 @@ def phase_byte_identity(torch, tmp):
     phase_graph_cmds(tmp, raw, genome)
     phase_link_cmds(tmp, raw, genome)
     phase_read_cmds(tmp, genome)
+    elapsed("5e")
+    phase_calling_cmds(tmp, genome)
+    elapsed("5f")
 
 
 def run_cli_out(argv) -> tuple:
@@ -2199,8 +2254,9 @@ def gap_counts(log: str) -> str:
     return m.group(1) if m else "no gaps"
 
 
-N_GAP_READS = 65_536      # phase 4e's reads through gap-filled thread (half
-                          # of scale_test.py's 131,072, for the time limit)
+N_GAP_READS = 32_768      # phase 4e's reads through gap-filled thread (a
+                          # quarter of scale_test.py's 131,072, for the time
+                          # limit once the calling phases came in)
 
 
 def phase_links(torch, tmp, card, genome, reads, fq, linkless_n50) -> int:
@@ -2298,16 +2354,17 @@ def phase_links(torch, tmp, card, genome, reads, fq, linkless_n50) -> int:
           f"substring; halts {np.bincount(stops.reshape(-1), minlength=13)}")
 
     # one gap-fill batch (2048 reads, no links, as thread's default) and
-    # one contigs -p batch (512 seeds) under torch.profiler, caches warm
+    # one contigs -p batch (128 seeds, max_len 8192) under torch.profiler,
+    # caches warm
     batch = reads[:2048]
     all_links = ctp.load_link_store([all_ctp], g)
     for label, fn, warm in (
             ("gap-fill batch of 2048 reads",
              lambda: acorrect.correct_batch(g, None, batch),
              lambda: acorrect.correct_batch(g, None, batch[:64])),
-            ("contigs -p batch of 512 seeds",
+            ("contigs -p batch of 128 seeds",
              lambda: lwalk.assemble_contigs_primed(
-                 g, all_links, np.arange(512), colour=0, max_len=65536,
+                 g, all_links, np.arange(128), colour=0, max_len=8192,
                  missing_check=True),
              lambda: lwalk.get_hopinfo(g, all_links))):
         warm()
@@ -2373,13 +2430,14 @@ def read_threshold_file(path: str) -> dict:
     return out
 
 
-N_PAIRS = 8_192           # phase 4f's paired-end fragments (8,192 rather
+N_PAIRS = 4_096           # phase 4f's paired-end fragments (4,096 rather
                           # than 32,768 keeps the script in its time limit)
-N_SINGLE = 16_384         # phase 4f's single reads through correct -1
+N_SINGLE = 8_192          # phase 4f's single reads through correct -1
+N_READS_CMD = 131_072     # phase 4f's reads through `reads` and `reads -v`
 FRAG_MAX = 600            # thread/correct -L for its 400-500 bp fragments
 
 
-def phase_reads_correct(torch, tmp, card, genome, reads, starts, fq) -> int:
+def phase_reads_correct(torch, tmp, card, genome, reads, starts) -> int:
     """4f: paired-end links, link cleaning, read correction, read
     filtering and coverage on the cleaned E. coli graph of phase 4b,
     through the CLI on the card, each held to numpy.  Returns the lookup
@@ -2525,30 +2583,33 @@ def phase_reads_correct(torch, tmp, card, genome, reads, starts, fq) -> int:
         fail("correct -2 made no mate equal to its genome substring")
 
     # reads: kept and dropped against a numpy membership test
-    nw = reads.shape[1] - K_MAIN + 1
-    touch = np.zeros(len(reads), bool)
-    for c0 in range(0, len(reads), 65_536):
-        ck = canonical_kmers_np(reads[c0:c0 + 65_536], K_MAIN)
+    sub = reads[:N_READS_CMD]
+    sub_fq = os.path.join(tmp, "reads_cmd.fq")
+    write_fastq(sub_fq, sub)
+    nw = sub.shape[1] - K_MAIN + 1
+    touch = np.zeros(len(sub), bool)
+    for c0 in range(0, len(sub), 65_536):
+        ck = canonical_kmers_np(sub[c0:c0 + 65_536], K_MAIN)
         touch[c0:c0 + 65_536] = rows_of(kv, ck)[1].reshape(-1, nw).any(
             axis=1)
     counts = {}
     for inv in (False, True):
         out = os.path.join(tmp, f"reads_kept_{int(inv)}.fa")
-        log, wall, nl = lookups_of(["reads", "--seq", fq, "-o", out, cln]
+        log, wall, nl = lookups_of(["reads", "--seq", sub_fq, "-o", out, cln]
                                    + (["-v"] if inv else []),
                                    "reads" + (" -v" if inv else ""))
         lookups += nl
         mr = re.search(r"kept (\d+)/(\d+) reads", log)
         counts[inv] = (int(mr.group(1)), int(mr.group(2)))
-        print(f"4f: mctx-torch reads{' -v' if inv else ''} of {len(reads)} "
+        print(f"4f: mctx-torch reads{' -v' if inv else ''} of {len(sub)} "
               f"reads wall {wall:.3f}s: kept {mr.group(1)}/{mr.group(2)}; "
               f"lookup launches {nl}; split: {time_split(log)}")
     want = int(touch.sum())
-    if counts[False] != (want, len(reads)) or \
-            counts[True] != (len(reads) - want, len(reads)):
-        fail(f"reads kept {counts} against numpy's {want} of {len(reads)}")
-    print(f"4f: reads kept {want} and dropped {len(reads) - want} equal the "
-          f"numpy membership test; the two sum to {len(reads)}")
+    if counts[False] != (want, len(sub)) or \
+            counts[True] != (len(sub) - want, len(sub)):
+        fail(f"reads kept {counts} against numpy's {want} of {len(sub)}")
+    print(f"4f: reads kept {want} and dropped {len(sub) - want} equal the "
+          f"numpy membership test; the two sum to {len(sub)}")
 
     # coverage of 4096 reads against the graph's coverage in numpy
     q_fq = os.path.join(tmp, "reads4k.fq")
@@ -2576,7 +2637,7 @@ def phase_reads_correct(torch, tmp, card, genome, reads, starts, fq) -> int:
 
 def phase_link_cmds(tmp, two, genome):
     """5d: thread (default, --no-gap-fill, -W, -p with -0) of the first
-    4096 reads of colour a against the cleaned 2-colour graph of phase 5,
+    2048 reads of colour a against the cleaned 2-colour graph of phase 5,
     then contigs -p (-N 64 from a batch of 64 seeds; with -P, from the
     links of 64 reads; with -C -G) and check -p, on the card and on the CPU: the same decompressed
     .ctp text (the date fixed, only the generator masked), the same FASTA
@@ -2585,9 +2646,9 @@ def phase_link_cmds(tmp, two, genome):
     # colour a's reads: thread follows the edges of colour 0, where the
     # links go, so reads of colour b would thread through its SNP kmers
     # into links that are not walkable in colour 0 (the reference's rule)
-    fq = os.path.join(tmp, "c0_4k.fq")
+    fq = os.path.join(tmp, "c0_5d.fq")
     with open(os.path.join(tmp, "c0.fq"), "rb") as src, open(fq, "wb") as dst:
-        for _ in range(4 * 4096):
+        for _ in range(4 * 2048):
             dst.write(src.readline())
     L = {n: os.path.join(tmp, f"l5_{n}.ctp.gz")
          for n in ("nogap", "default", "small")}
@@ -2601,14 +2662,14 @@ def phase_link_cmds(tmp, two, genome):
         ("thread 64 reads", ["thread", "--seq", fq + ".64", "-o", "OUT",
                              cln], L["small"]),
         ("contigs -p", ["contigs", "-p", L["default"], "-N", "64",
-                        "--batch", "64", "--max-len", "300", "-o", "OUT",
+                        "--batch", "64", "--max-len", "150", "-o", "OUT",
                         cln], None),
         ("contigs -p -P", ["contigs", "-p", L["small"], "-P", "-N", "64",
-                           "--batch", "64", "--max-len", "300", "-o", "OUT",
+                           "--batch", "64", "--max-len", "150", "-o", "OUT",
                            cln], None),
         ("contigs -p -C 0.5 -G 200000",
          ["contigs", "-p", L["default"], "-C", "0.5", "-G", "200000", "-N",
-          "64", "--batch", "64", "--max-len", "300", "-o", "OUT", cln],
+          "64", "--batch", "64", "--max-len", "150", "-o", "OUT", cln],
          None),
         ("check -p", ["check", "-p", L["default"], cln], None))
     with open(fq, "rb") as src, open(fq + ".64", "wb") as dst:
@@ -2644,12 +2705,12 @@ def phase_link_cmds(tmp, two, genome):
 def phase_read_cmds(tmp, genome):
     """5e: thread -2 and -i of 2048 fragments of colour a's genome, links
     -c -l -T -H -P -L on those links, reads -1/-2/-i (and -v) and
-    coverage -e -E of phase 5d's 4096 reads and the pairs, and correct
+    coverage -e -E of phase 5d's 2048 reads and the pairs, and correct
     -1/-2/-i (-F fastq, -W, -p; 512 reads and 256 pairs) on the cleaned
     2-colour graph of phase 5, on the card and on the CPU: the same
     bytes and status."""
     cln = os.path.join(tmp, "cuda_c.ctx")
-    se = os.path.join(tmp, "c0_4k.fq")             # phase 5d's reads
+    se = os.path.join(tmp, "c0_5d.fq")             # phase 5d's reads
     m1, m2, _fs, _fl = pe_library(genome, 2048, seed=7)
     r1, r2, il = (os.path.join(tmp, f"p5_{n}.fq") for n in ("1", "2", "il"))
     write_fastq(r1, m1)
@@ -2703,6 +2764,497 @@ def phase_read_cmds(tmp, genome):
               f"{'; '.join(ln[7:] for ln in status.splitlines() if ln.startswith('[mctx] ') and 'memory' not in ln)}; "
               f"wall {wcard:.3f}s on the card (launches "
               f"{json.dumps(launched)}), {wcpu:.3f}s on the CPU")
+
+
+# ---------------------------------------------------------------------------
+# calling: 4g (the E. coli genome), 5f (card == CPU), 5g (pipeline)
+# ---------------------------------------------------------------------------
+
+N_SNPS = 500              # phase 4g's planted SNPs and indels of 1-10 bp
+N_INDELS = 50             # (2,000 and 200 took the script past 700 s)
+VAR_GAP = 300             # every two planted variants at least this apart
+_ACGT = np.frombuffer(b"ACGT", np.uint8)
+
+
+def dna(codes: np.ndarray) -> str:
+    return _ACGT[codes].tobytes().decode()
+
+
+def plant_variants(genome: np.ndarray, seed: int, nsnp: int, nindel: int):
+    """(sample genome, [(pos, REF, ALT)] SNPs, the same of indels): SNPs
+    and indels of 1-10 bp planted with numpy at multiples of VAR_GAP;
+    indels as VCF writes them (pos = the anchor base before them)."""
+    rng = np.random.default_rng(seed)
+    nvar = nsnp + nindel
+    pos = np.sort(rng.choice(np.arange(2, len(genome) // VAR_GAP - 2), nvar,
+                             replace=False)) * VAR_GAP
+    is_snp = rng.permutation(nvar) < nsnp
+    lens = rng.integers(1, 11, nvar)
+    is_ins = rng.random(nvar) < 0.5
+    ins = rng.integers(0, 4, (nvar, 10), dtype=np.uint8)
+    shift = rng.integers(1, 4, nvar).astype(np.uint8)
+    parts, last, snps, indels = [], 0, [], []
+    for i, p in enumerate(pos.tolist()):
+        if is_snp[i]:
+            alt = (genome[p] + shift[i]) % 4
+            parts += [genome[last:p], np.array([alt], np.uint8)]
+            snps.append((p, dna(genome[p:p + 1]), dna(np.array([alt]))))
+            last = p + 1
+        elif is_ins[i]:
+            parts += [genome[last:p + 1], ins[i, :lens[i]]]
+            indels.append((p, dna(genome[p:p + 1]),
+                           dna(genome[p:p + 1]) + dna(ins[i, :lens[i]])))
+            last = p + 1
+        else:
+            parts.append(genome[last:p + 1])
+            indels.append((p, dna(genome[p:p + 1 + lens[i]]),
+                           dna(genome[p:p + 1])))
+            last = p + 1 + int(lens[i])
+    parts.append(genome[last:])
+    return np.concatenate(parts), snps, indels
+
+
+def vcf_rows(path: str) -> list:
+    """[(chrom, pos0, REF, ALT, sample fields)] of a VCF."""
+    out = []
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("#"):
+                continue
+            f = line.rstrip("\n").split("\t")
+            out.append((f[0], int(f[1]) - 1, f[3], f[4], f[8:]))
+    return out
+
+
+def check_ref_alleles(rows: list, genome_s: str, label: str):
+    """Every record's REF is the genome at its POS."""
+    bad = [r for r in rows if genome_s[r[1]:r[1] + len(r[2])] != r[2]]
+    if bad:
+        fail(f"{label}: {len(bad)} of {len(rows)} records have a REF that is "
+             f"not the genome at POS, e.g. {bad[0][:4]}")
+
+
+def score_calls(rows: list, snps: list, indels: list, outside, k: int):
+    """Recall of the planted variants and the false calls, split into SNPs
+    and indels.  A SNP is found with its POS/REF/ALT; an indel by a record
+    of the same length change within k of it (VCF left-aligns indels in
+    repeats).  outside(pos): the variant lies outside the repeat
+    families."""
+    exact = {(r[1], r[2], r[3]) for r in rows}
+    snp_set = set(snps)
+    snp_hit = [v in exact for v in snps]
+    by_dlen = {}
+    for r in rows:
+        if len(r[2]) != len(r[3]):
+            by_dlen.setdefault(len(r[3]) - len(r[2]), []).append(r[1])
+    ind_hit = [any(abs(q - p) <= k for q in by_dlen.get(len(a) - len(rf), ()))
+               for p, rf, a in indels]
+    ind_pos = {}
+    for p, rf, a in indels:
+        ind_pos.setdefault(len(a) - len(rf), []).append(p)
+    false_snp = sum(1 for r in rows if len(r[2]) == len(r[3])
+                    and (r[1], r[2], r[3]) not in snp_set)
+    false_ind = sum(1 for r in rows if len(r[2]) != len(r[3]) and not any(
+        abs(p - r[1]) <= k for p in ind_pos.get(len(r[3]) - len(r[2]), ())))
+    out_snp = [h for h, (p, _r, _a) in zip(snp_hit, snps) if outside(p)]
+    return dict(snps=sum(snp_hit), snps_outside=sum(out_snp),
+                n_outside=len(out_snp), indels=sum(ind_hit),
+                false_snps=false_snp, false_indels=false_ind)
+
+
+class CallCounter:
+    """Counts the bubble caller's forks (calls/bubbles.find_fork_vertices)
+    and its walks and walkers (links/walk.walk_linked calls), and keeps
+    the arguments of the first walk."""
+
+    def __init__(self, bub, lwalk):
+        self.bub, self.lwalk = bub, lwalk
+        self.forks = self.walks = self.walkers = 0
+        self.first = None
+        self._forks, self._walk = bub.find_fork_vertices, lwalk.walk_linked
+
+    def __enter__(self):
+        def forks(g):
+            out = self._forks(g)
+            self.forks += len(out)
+            return out
+
+        def walk(g, links, st, *a, **kw):
+            self.walks += 1
+            self.walkers += st.base.idx.shape[0]
+            if self.first is None:
+                self.first = (g, links, st, a, kw)
+            return self._walk(g, links, st, *a, **kw)
+
+        self.bub.find_fork_vertices, self.lwalk.walk_linked = forks, walk
+        return self
+
+    def __exit__(self, *exc):
+        self.bub.find_fork_vertices = self._forks
+        self.lwalk.walk_linked = self._walk
+
+
+def phase_calling(torch, tmp, card, genome) -> int:
+    """4g: variant calling on the E. coli-sized genome of phase 4, through
+    the CLI on the card: 500 SNPs and 50 indels planted in a sample
+    (seed 7), its reads (20x of 150 bp, 0.3 % substitutions) built and
+    cleaned (`clean -T -U`) as colour 0, the genome built as colour 1,
+    the two joined; then `bubbles -H 1`, `calls2vcf`, `breakpoints` and
+    its `calls2vcf`, `vcfcov`, `vcfgeno` and `popbubbles` with `check` of
+    its graph.  Each command that reads the graph must launch the lookup
+    kernel.  Gates: every record's REF is the genome at POS, at least 90 %
+    of the SNPs outside the repeat families called with their
+    POS/REF/ALT, a ref-only branch in the joined graph at every such SNP,
+    at least one bubble popped into a smaller graph that `check` passes.
+    Returns the lookup kernel's launches."""
+    from mccortex_tpu_torch.calls import bubbles as bub
+    from mccortex_tpu_torch.io import ctx as ctxio
+    from mccortex_tpu_torch.links import walk as lwalk
+
+    t_phase = time.perf_counter()
+    gfa = os.path.join(tmp, "genome.fa")
+    genome_s = dna(genome)
+    sample, snps, indels = plant_variants(genome, 7, N_SNPS, N_INDELS)
+    rep = repeat_mask(len(genome), seed=0)
+    rep_k = np.convolve(rep, np.ones(2 * K_MAIN + 1), "same") > 0
+
+    def outside(p):
+        return not rep_k[p]
+
+    reads, _starts = reads_of(sample, 20.0, np.random.default_rng(8))
+    fq = os.path.join(tmp, "sample.fq")
+    write_fastq(fq, reads)
+    print(f"4g: sample of {len(sample)} bp with {len(snps)} SNPs and "
+          f"{len(indels)} indels of 1-10 bp planted (seed 7, "
+          f"{sum(outside(p) for p, _r, _a in snps)} SNPs outside the repeat "
+          f"families), {len(reads)} reads x 150 bp, 0.3 % substitutions "
+          f"(made in {time.perf_counter() - t_phase:.1f}s)")
+    del reads
+    paths = {n: os.path.join(tmp, f"call_{n}") for n in (
+        "s_raw.ctx", "s.ctx", "ref.ctx", "joint.ctx", "bub.txt.gz",
+        "bub.vcf", "brk.txt.gz", "brk.vcf", "cov.vcf", "geno.vcf",
+        "popped.ctx")}
+    t0 = time.perf_counter()
+    for argv in (["build", "-k", str(K_MAIN), "--sample", "sample", "--seq",
+                  fq, paths["s_raw.ctx"]],
+                 ["clean", "-T", "-U", "-o", paths["s.ctx"],
+                  paths["s_raw.ctx"]],
+                 ["build", "-k", str(K_MAIN), "--sample", "ref", "--seq", gfa,
+                  paths["ref.ctx"]],
+                 ["join", "-o", paths["joint.ctx"], paths["s.ctx"],
+                  paths["ref.ctx"]]):
+        run_cli(argv + ["--device", "cuda"])
+    joint = paths["joint.ctx"]
+    _h, keys, covg, _e = ctxio.read_ctx(joint)
+    kv = keys[:, 0]
+    print(f"4g: sample built, cleaned and joined with the reference in "
+          f"{time.perf_counter() - t0:.1f}s: {len(kv)} kmers in 2 colours")
+
+    # a ref-only branch at every SNP outside the repeats: the reference
+    # kmer centred on it is in colour 1 and not in colour 0
+    out_snps = np.array([p for p, _r, _a in snps if outside(p)])
+    win = genome[out_snps[:, None] + np.arange(-(K_MAIN // 2),
+                                               K_MAIN // 2 + 1)]
+    row, found = rows_of(kv, canonical_kmers_np(win, K_MAIN)[:, None])
+    row, found = row[:, 0], found[:, 0]
+    ref_only = found & (covg[row, 1] > 0) & (covg[row, 0] == 0)
+    if not ref_only.all():
+        fail(f"4g: {int((~ref_only).sum())} of {len(out_snps)} planted SNPs "
+             f"outside the repeats have no ref-only branch in the joined "
+             f"graph")
+
+    lookups = 0
+    with CallCounter(bub, lwalk) as cc, StepCounter(lwalk) as sc:
+        log, wall, nl = lookups_of(["bubbles", "-H", "1", "-o",
+                                    paths["bub.txt.gz"], joint], "bubbles")
+    lookups += nl
+    nbub = int(re.search(r"found (\d+) bubbles", log).group(1))
+    print(f"4g on {card}: mctx-torch bubbles -H 1 of the {len(kv)}-kmer "
+          f"joined graph: wall {wall:.3f}s, {nbub} bubbles, {cc.forks} "
+          f"forks, {cc.walkers} walkers in {cc.walks} walks, {sc.steps} "
+          f"walker steps; lookup launches {nl}; split: {time_split(log)}")
+    t0 = time.perf_counter()
+    log = run_cli(["calls2vcf", "-o", paths["bub.vcf"], paths["bub.txt.gz"],
+                   gfa, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    rows = vcf_rows(paths["bub.vcf"])
+    check_ref_alleles(rows, genome_s, "4g bubbles calls2vcf")
+    sc_b = score_calls(rows, snps, indels, outside, K_MAIN)
+    print(f"4g: mctx-torch calls2vcf of the bubbles: wall {wall:.3f}s, "
+          f"{len(rows)} records, every REF the genome's; SNPs called "
+          f"{sc_b['snps']}/{len(snps)} ({sc_b['snps_outside']}/"
+          f"{sc_b['n_outside']} outside the repeats), indels "
+          f"{sc_b['indels']}/{len(indels)}; false calls: "
+          f"{sc_b['false_snps']} SNP-like, {sc_b['false_indels']} indels")
+    if sc_b["snps_outside"] < 0.9 * sc_b["n_outside"]:
+        fail(f"4g: only {sc_b['snps_outside']} of {sc_b['n_outside']} "
+             f"planted SNPs outside the repeats were called")
+
+    # one walk of the bubble caller again, under torch.profiler
+    g, links, st, a, kw = cc.first
+    with StepCounter(lwalk) as sc:
+        kinds, us, pwall = device_profile(
+            torch, lambda: lwalk.walk_linked(g, links, st, *a, **kw))
+    ops = sum(kinds.values())
+    dev_s = sum(us.values()) / 1e6
+    if ops == 0 or sc.steps == 0:
+        fail("torch.profiler saw no device operation of the bubble walk")
+    print(f"4g: the first bubbles walk ({st.base.idx.shape[0]} walkers) "
+          f"under torch.profiler: {sc.steps} walker steps, {ops} device "
+          f"operations ({json.dumps(kinds)}), {ops / sc.steps:.1f} per step; "
+          f"device time {1e3 * dev_s:.3f} ms, busy "
+          f"{100 * dev_s / pwall:.1f}% of its wall ({pwall:.4f}s)")
+    del g, links, st, cc
+
+    log, wall, nl = lookups_of(["breakpoints", "-s", gfa, "-o",
+                                paths["brk.txt.gz"], joint], "breakpoints")
+    lookups += nl
+    nbrk = int(re.search(r"found (\d+) breakpoints", log).group(1))
+    t0 = time.perf_counter()
+    run_cli(["calls2vcf", "-o", paths["brk.vcf"], paths["brk.txt.gz"], gfa,
+             "--device", "cuda"])
+    wall2 = time.perf_counter() - t0
+    brows = vcf_rows(paths["brk.vcf"])
+    check_ref_alleles(brows, genome_s, "4g breakpoints calls2vcf")
+    sc_k = score_calls(brows, snps, indels, outside, K_MAIN)
+    print(f"4g: mctx-torch breakpoints -s: wall {wall:.3f}s, {nbrk} calls; "
+          f"lookup launches {nl}; split: {time_split(log)}; calls2vcf "
+          f"{wall2:.3f}s, {len(brows)} records, every REF the genome's; "
+          f"SNPs {sc_k['snps']}/{len(snps)}, indels {sc_k['indels']}/"
+          f"{len(indels)}; false calls: {sc_k['false_snps']} SNP-like, "
+          f"{sc_k['false_indels']} indels")
+
+    log, wall, nl = lookups_of(["vcfcov", "-r", gfa, "-o", paths["cov.vcf"],
+                                paths["bub.vcf"], joint], "vcfcov")
+    lookups += nl
+    crows = vcf_rows(paths["cov.vcf"])
+    tags = [dict(zip(r[4][0].split(":"), r[4][1].split(":"))) for r in crows]
+    if len(crows) != len(rows) or any("K31A" not in t for t in tags):
+        fail("4g: vcfcov did not annotate every record with K31R/K31A")
+    hit = [(r[1], r[2], r[3]) in set(snps) for r in crows]
+    alt_cov = [int(t["K31A"]) for t, h in zip(tags, hit)
+               if h and t["K31A"] != "."]
+    print(f"4g: mctx-torch vcfcov: wall {wall:.3f}s, {len(crows)} records "
+          f"annotated; the sample's mean K31A over the called planted SNPs "
+          f"{np.mean(alt_cov) if alt_cov else float('nan'):.1f}; lookup "
+          f"launches {nl}; split: {time_split(log)}")
+    t0 = time.perf_counter()
+    run_cli(["vcfgeno", "-k", str(K_MAIN), "--kcov", "20,1", "-o",
+             paths["geno.vcf"], paths["cov.vcf"], "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    gts = {}
+    for r, h in zip(vcf_rows(paths["geno.vcf"]), hit):
+        if h:
+            gt = r[4][1].split(":")[0]
+            gts[gt] = gts.get(gt, 0) + 1
+    print(f"4g: mctx-torch vcfgeno: wall {wall:.3f}s; the sample's "
+          f"genotypes at the called planted SNPs {json.dumps(gts)}")
+
+    log, wall, nl = lookups_of(["popbubbles", "-o", paths["popped.ctx"],
+                                joint], "popbubbles")
+    lookups += nl
+    m = re.search(r"popped (\d+) bubbles: (\d+) -> (\d+) kmers", log)
+    if not m or int(m.group(1)) < 1 or int(m.group(3)) >= int(m.group(2)):
+        fail("4g: popbubbles popped no bubble or left no smaller graph")
+    run_cli(["check", paths["popped.ctx"], "--device", "cuda"])
+    _h, pkeys, _c, _e = ctxio.read_ctx(paths["popped.ctx"])
+    _r, still = rows_of(pkeys[:, 0], kv[row[ref_only]][:, None])
+    print(f"4g: mctx-torch popbubbles: wall {wall:.3f}s, {m.group(1)} "
+          f"bubbles popped, {m.group(2)} -> {m.group(3)} kmers, check OK; "
+          f"{int((~still).sum())} of {int(ref_only.sum())} ref-only SNP "
+          f"kmers popped; lookup launches {nl}; split: {time_split(log)}")
+    print(f"4g: phase {time.perf_counter() - t_phase:.1f}s, lookup launches "
+          f"{lookups}")
+    return lookups
+
+
+def phase_calling_cmds(tmp, genome):
+    """5f: the calling commands on phase 5's 200 kb genome in two colours:
+    a sample with 100 SNPs and 10 indels planted (seed 9; reads 15x of
+    150 bp, 0.3 % substitutions, built and cleaned) and the genome,
+    joined.  On the card and on the CPU: the same call files
+    (decompressed, `generator` masked), VCF and BCF bytes and status
+    lines.  The commands that read the graph must launch the lookup
+    kernel on the card; calls2vcf and vcfgeno read a call file or a VCF
+    only."""
+    gfa = os.path.join(tmp, "five.fa")
+    with open(gfa, "w") as fh:
+        fh.write(f">five\n{dna(genome)}\n")
+    sample, _snps, _indels = plant_variants(genome, 9, 100, 10)
+    reads, _starts = reads_of(sample, 15.0, np.random.default_rng(10))
+    fq = os.path.join(tmp, "five_sample.fq")
+    write_fastq(fq, reads)
+    o = {n: os.path.join(tmp, f"five_{n}") for n in (
+        "s_raw.ctx", "s.ctx", "ref.ctx", "joint.ctx", "bub.txt.gz",
+        "pop.ctx", "bub.vcf", "bub.bcf", "bub.vcf.gz", "brk.txt.gz",
+        "brk.vcf", "cov.vcf", "geno.vcf")}
+    for argv in (["build", "-k", str(K_MAIN), "--sample", "sample", "--seq",
+                  fq, o["s_raw.ctx"]],
+                 ["clean", "-T", "-U", "-o", o["s.ctx"], o["s_raw.ctx"]],
+                 ["build", "-k", str(K_MAIN), "--sample", "ref", "--seq", gfa,
+                  o["ref.ctx"]],
+                 ["join", "-o", o["joint.ctx"], o["s.ctx"], o["ref.ctx"]]):
+        run_cli(argv + ["--device", "cuda", "-q"])
+    joint = o["joint.ctx"]
+    for name, argv, out, need in (
+            ("bubbles", ["bubbles", "-o", o["bub.txt.gz"], joint],
+             "bub.txt.gz", ("lookup",)),
+            ("popbubbles", ["popbubbles", "-o", o["pop.ctx"], joint],
+             "pop.ctx", ("lookup",)),
+            ("calls2vcf -O vcf", ["calls2vcf", "-O", "vcf", "-o",
+                                  o["bub.vcf"], o["bub.txt.gz"], gfa],
+             "bub.vcf", ()),
+            ("calls2vcf -O bcf", ["calls2vcf", "-O", "bcf", "-o",
+                                  o["bub.bcf"], o["bub.txt.gz"], gfa],
+             "bub.bcf", ()),
+            ("calls2vcf -O vcfgz", ["calls2vcf", "-O", "vcfgz", "-o",
+                                    o["bub.vcf.gz"], o["bub.txt.gz"], gfa],
+             "bub.vcf.gz", ()),
+            ("breakpoints", ["breakpoints", "-s", gfa, "-o", o["brk.txt.gz"],
+                             joint], "brk.txt.gz", ("lookup",)),
+            ("calls2vcf (breakpoints)", ["calls2vcf", "-o", o["brk.vcf"],
+                                         o["brk.txt.gz"], gfa],
+             "brk.vcf", ()),
+            ("vcfcov", ["vcfcov", "-r", gfa, "-o", o["cov.vcf"], o["bub.vcf"],
+                        joint], "cov.vcf", ("lookup",)),
+            ("vcfgeno", ["vcfgeno", "-k", str(K_MAIN), "--kcov", "15,1", "-l",
+                         "-o", o["geno.vcf"], o["cov.vcf"]], "geno.vcf", ())):
+        files, _text, status, wcard, wcpu, launched = same_on_both(
+            name, argv, outs=(o[out],), need=need)
+        print(f"calling command {name} (k={K_MAIN}, sample + reference): "
+              f"{sum(map(len, files.values()))} bytes out, CUDA == CPU; "
+              f"{'; '.join(ln[7:] for ln in status.splitlines() if ln.startswith('[mctx] ') and 'memory' not in ln)}; "
+              f"wall {wcard:.3f}s on the card (launches "
+              f"{json.dumps(launched)}), {wcpu:.3f}s on the CPU")
+
+
+def _random_dna(n: int, seed: int) -> str:
+    """tests/util.py random_dna: n bases from random.Random(seed)."""
+    import random
+    rng = random.Random(seed)
+    return "".join(rng.choice("ACGT") for _ in range(n))
+
+
+def phase_pipeline(tmp, card):
+    """5g: `mctx-torch pipeline` once on the card, on the 100 kb diploid
+    case of tests/test_pipeline_scale.py (its seeded simulation copied:
+    SNPs, indels, a tandem repeat, a 400 bp deletion, SE and PE reads);
+    it must miss no truth variant, as that test checks."""
+    import random
+    t_phase = time.perf_counter()
+    rng = random.Random(515151)
+    k = 31
+    G = 100_000
+    base = _random_dna(G, seed=4100)
+    unit = base[30_000:30_060]
+    ref = base[:30_060] + unit + base[30_060:]
+    truth = []
+    for pp in [2_000, 6_500, 11_000, 17_500, 22_000, 27_000, 36_000, 41_000,
+               46_000, 48_500, 55_000, 62_000, 81_000, 92_000]:
+        truth.append((pp, ref[pp], "ACGT"[("ACGT".index(ref[pp]) + 1) % 4]))
+    for pp, ln in [(8_000, 5), (38_500, 12), (58_000, 3), (86_000, 25)]:
+        truth.append((pp, ref[pp:pp + ln + 1], ref[pp]))
+    for pp, ln, seed in [(14_000, 6, 4201), (44_000, 10, 4202),
+                         (66_000, 18, 4203), (95_000, 4, 4204)]:
+        truth.append((pp, ref[pp], ref[pp] + _random_dna(ln, seed=seed)))
+    BRK_POS, BRK_LEN = 72_000, 400
+
+    def apply(seq, variants):
+        out, last = [], 0
+        for pos, r, a in sorted(variants):
+            out += [seq[last:pos], a]
+            last = pos + len(r)
+        return "".join(out + [seq[last:]])
+
+    t_sorted = sorted(truth)
+    half = len(t_sorted) // 2
+    s1a, s1b = ref, apply(ref, t_sorted[:half] + [t_sorted[half]])
+    s2a = s2b = apply(ref, t_sorted[half:] + [
+        (BRK_POS, ref[BRK_POS:BRK_POS + BRK_LEN + 1], ref[BRK_POS])])
+
+    def noisy(s):
+        out = list(s)
+        for i in range(len(out)):
+            if rng.random() < 0.003:
+                out[i] = rng.choice("ACGT")
+        return "".join(out)
+
+    r1 = []
+    for _ in range(40 * G // 100):
+        hap = s1a if rng.random() < 0.5 else s1b
+        pos = rng.randrange(0, len(hap) - 100)
+        r1.append(noisy(hap[pos:pos + 100]))
+    p1, p2 = [], []
+    for _ in range(20 * G // 100):
+        hap = s2a if rng.random() < 0.5 else s2b
+        ins = 300 + rng.randrange(-30, 31)
+        pos = rng.randrange(0, len(hap) - ins)
+        frag = hap[pos:pos + ins]
+        p1.append(noisy(frag[:100]))
+        p2.append(noisy(frag[-100:][::-1].translate(
+            str.maketrans("ACGT", "TGCA"))))
+    d = os.path.join(tmp, "pipe_in")
+    os.makedirs(d, exist_ok=True)
+    files = {}
+    for name, recs, fmt in (("ref.fa", [ref], ">ref\n{}\n"),
+                            ("s1.fa", r1, None), ("s2.1.fa", p1, None),
+                            ("s2.2.fa", p2, None)):
+        files[name] = os.path.join(d, name)
+        with open(files[name], "w") as fh:
+            if fmt:
+                fh.write(fmt.format(recs[0]))
+                continue
+            tag = {"s1.fa": "s1_{}", "s2.1.fa": "s2_{}/1",
+                   "s2.2.fa": "s2_{}/2"}[name]
+            for i, r in enumerate(recs):
+                fh.write(f">{tag.format(i)}\n{r}\n")
+    samples = os.path.join(d, "samples.txt")
+    with open(samples, "w") as fh:
+        fh.write(f"s1 {files['s1.fa']} . .\n")
+        fh.write(f"s2 . {files['s2.1.fa']}:{files['s2.2.fa']} .\n")
+    print(f"5g: 100 kb diploid case of tests/test_pipeline_scale.py: "
+          f"{len(r1)} SE reads, {len(p1)} pairs (made in "
+          f"{time.perf_counter() - t_phase:.1f}s)")
+    from mccortex_tpu_torch.io import vcf as vcfio
+    from mccortex_tpu_torch.ops.kernels import _build
+    outdir = os.path.join(tmp, "pipe")
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    log = run_cli(["pipeline", "-k", str(k), "--samples", samples, "--ref",
+                   files["ref.fa"], "--kcov", "28,28", "-o", outdir,
+                   "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launched = dict(_build.LAUNCHES)
+    if launched.get("lookup", 0) <= 0:
+        fail("5g: the pipeline never launched the lookup kernel")
+    vcf = vcfio.read_vcf(os.path.join(outdir, "calls.cov.vcf"))
+    found = {(r.pos, r.ref, r.alts[0]) for r in vcf.records}
+    missed = []
+    for (pp, rr, aa) in truth:
+        if (pp, rr, aa) in found:
+            continue
+        dlen = len(aa) - len(rr)
+        near = [r for r in vcf.records if abs(r.pos - pp) <= k
+                and len(r.alts[0]) - len(r.ref) == dlen]
+        if dlen == 0 or not near:
+            missed.append((pp, rr[:8], aa[:8]))
+    if missed:
+        fail(f"5g: the pipeline missed {len(missed)} truth variants: "
+             f"{missed}")
+    big = [r for r in vcf.records if len(r.ref) - len(r.alts[0])
+           >= BRK_LEN - 2 * k and abs(r.pos - BRK_POS) <= 2 * k]
+    if not big:
+        fail("5g: the 400 bp deletion is not in the pipeline's VCF")
+    geno = vcfio.read_vcf(os.path.join(outdir, "calls.geno.vcf"))
+    if not geno.records or "GT" not in geno.records[0].fmt or \
+            geno.sample_names != ["s1", "s2", "ref"]:
+        fail("5g: the genotyped VCF lacks GT or its samples")
+    steps = [ln for ln in log.splitlines() if "pipeline: mctx " in ln]
+    print(f"5g on {card}: mctx-torch pipeline -k 31 (2 samples + the "
+          f"reference, {len(steps)} steps): wall {wall:.3f}s, "
+          f"{len(vcf.records)} records, all {len(truth)} truth variants and "
+          f"the 400 bp deletion found; launches {json.dumps(launched)}")
+
 
 
 def main():
@@ -2766,24 +3318,33 @@ def main():
         elapsed("4e")
         # 4f. paired-end links, link cleaning, correction, reads, coverage
         lookups_4f = phase_reads_correct(torch, tmp, card, genome, reads,
-                                         starts,
-                                         os.path.join(tmp, "reads.fq"))
+                                         starts)
         elapsed("4f")
-        del genome, reads, starts
+        del reads, starts
         torch.cuda.empty_cache()
-        # 5. CUDA and CPU outputs byte for byte
+        # 4g. variant calling against the genome: bubbles, breakpoints,
+        # calls2vcf, vcfcov, vcfgeno, popbubbles
+        lookups_4g = phase_calling(torch, tmp, card, genome)
+        elapsed("4g")
+        del genome
+        torch.cuda.empty_cache()
+        # 5. CUDA and CPU outputs byte for byte (5f: the calling commands)
         phase_byte_identity(torch, tmp)
-        elapsed("5")
+        # 5g. the pipeline once on the card
+        phase_pipeline(tmp, card)
+        elapsed("5g")
 
     # launches on the main path: the build's kernels from the E. coli build
     # under the default engine, the sort kernels from the build under the
     # engine that runs them, the lookup kernel from clean + unitigs, from
     # contigs + inferedges + subgraph, from thread + check -p +
-    # contigs -p and from thread -2, links, correct, reads and coverage
+    # contigs -p, from thread -2, links, correct, reads and coverage and
+    # from bubbles, breakpoints, vcfcov and popbubbles
     launches = {"frontend": by_engine["lax"]["frontend"],
                 "segreduce": by_engine["lax"]["segreduce"],
                 "mergepath": by_engine["lax"]["mergepath"],
-                "lookup": lookups + lookups_4d + lookups_4e + lookups_4f,
+                "lookup": (lookups + lookups_4d + lookups_4e + lookups_4f
+                           + lookups_4g),
                 "mergelevel": by_engine["mp"]["mergelevel"],
                 "bitonic_blocksort": by_engine["mp"]["bitonic_blocksort"],
                 "bitonic_tail": by_engine["bitonic"]["bitonic_tail"],
@@ -2805,7 +3366,8 @@ def main():
     results["lookup"].update(launches_clean_unitigs=lookups,
                              launches_graph_walks=lookups_4d,
                              launches_links=lookups_4e,
-                             launches_reads_correct=lookups_4f)
+                             launches_reads_correct=lookups_4f,
+                             launches_calling=lookups_4g)
     results["segreduce"].update(launches_epoch=lax["frontend"],
                                 launches_merge=lax["segreduce"]
                                 - lax["frontend"])

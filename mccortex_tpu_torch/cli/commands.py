@@ -1,7 +1,7 @@
 """mctx-torch subcommands (counterpart of mccortex_tpu/cli/commands.py):
 build (all of `mctx build` on one device), view, check (with -p),
-clean, unitigs, inferedges, contigs (linkless and linked), pview and
-thread (single-end and paired).  The commands of
+clean, unitigs, inferedges, contigs (linkless and linked), pview,
+thread (single-end and paired) and bubbles.  The commands of
 mccortex_tpu/cli/commands2.py and commands3.py are in commands2.py and
 commands3.py.
 """
@@ -1034,6 +1034,56 @@ def cmd_thread(argv):
             for line in fh:
                 if not line.startswith("#"):
                     sys.stdout.write(line)
+    status(f"time split: {timing.summary()}")
+    return 0
+
+
+
+# ---------------------------------------------------------------------------
+# bubbles (ref: src/commands/ctx_bubbles.c)
+# ---------------------------------------------------------------------------
+
+def cmd_bubbles(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch bubbles")
+    p.add_argument("-o", "--out", required=True, help="output .txt.gz")
+    p.add_argument("-p", "--paths", action="append", default=[])
+    p.add_argument("-A", "--max-allele", type=int, default=300)
+    p.add_argument("-F", "--max-flank", type=int, default=1000)
+    p.add_argument("-H", "--haploid", default="",
+                   help="comma-separated haploid colour list; "
+                        "'*' means all colours")
+    p.add_argument("-S", "--keep-serial", dest="keep_serial",
+                   action="store_true",
+                   help="keep serial (chained) bubbles "
+                        "(ref ctx_bubbles.c -S; higher FP)")
+    p.add_argument("--devices", default=None,
+                   help="devices to run on; more than 1 is not yet ported")
+    p.add_argument("ctx", nargs="+")
+    add_common(p)
+    args = p.parse_args(argv)
+    if devices_arg(args) > 1:
+        _not_ported(p, "--devices above 1")
+    status, device = apply_common(args, args.out)
+    timing.SPANS.clear()
+    from ..calls import bubbles as bub
+    from ..io import callfile
+    from ..io import ctp as ctpio
+    h, g = _load_graphs(args.ctx, device)
+    links = None
+    if args.paths:
+        with timing.span("links", device):
+            links = ctpio.load_link_store(args.paths, g)
+    haploid = (list(range(h.ncols)) if args.haploid.strip() == "*"
+               else [int(x) for x in args.haploid.split(",") if x != ""])
+    with timing.span("call", device):
+        bl = bub.call_bubbles(g, links, max_allele=args.max_allele,
+                              max_flank=args.max_flank, haploid_cols=haploid,
+                              remove_serial=not args.keep_serial)
+    with timing.span("write"):
+        callfile.write_bubble_file(
+            args.out, bl, g.k, h.ncols, args.max_allele, args.max_flank,
+            sample_names=[gi.sample_name for gi in h.ginfo])
+    status(f"found {len(bl)} bubbles -> {args.out}")
     status(f"time split: {timing.summary()}")
     return 0
 

@@ -1,5 +1,6 @@
 """mctx-torch subcommands of mccortex_tpu/cli/commands2.py: subgraph,
-join, pjoin, dist, sort, index, uniqkmers, rmsubstr, reads, coverage.
+join, pjoin, dist, sort, index, uniqkmers, rmsubstr, reads, coverage,
+popbubbles.
 join rebuilds its store on the device (graph/store.from_records: the
 sort and segreduce kernels on the card) and intersects through the
 batched lookup;
@@ -8,7 +9,8 @@ adjacency; dist and sort run on the device; pjoin merges link files
 (io/ctp.py, links/store.py); index, uniqkmers and rmsubstr are host
 code; reads and coverage map reads to node paths through the batched
 lookup (links/thread.reads_to_node_paths), one lookup per padded read
-length.
+length; popbubbles calls the bubbles of calls/bubbles.py and prunes one
+branch of each on the device.
 """
 
 from __future__ import annotations
@@ -750,5 +752,36 @@ def cmd_coverage(argv):
     finally:
         if out is not sys.stdout:
             out.close()
+    status(f"time split: {timing.summary()}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# popbubbles (ref ctx_pop_bubbles.c)
+# ---------------------------------------------------------------------------
+
+def cmd_popbubbles(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch popbubbles")
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("-C", "--max-covg", type=int, default=-1,
+                   help="only pop if removed branch covg <= this")
+    p.add_argument("-L", "--max-len", type=int, default=-1)
+    p.add_argument("-D", "--max-diff", type=int, default=-1,
+                   help="only pop bubbles whose branch lengths differ "
+                        "by at most D kmers (ref ctx_pop_bubbles.c -D)")
+    p.add_argument("ctx", nargs="+")
+    add_common(p)
+    args = p.parse_args(argv)
+    status, device = apply_common(args, args.out)
+    from ..calls import pop_bubbles as pb
+    from ..utils import timing
+    timing.SPANS.clear()
+    h, g = _load_graphs(args.ctx, device)
+    with timing.span("pop", device):
+        g2, npopped = pb.pop_bubbles(g, max_covg=args.max_covg,
+                                     max_len=args.max_len,
+                                     max_kdiff=args.max_diff)
+    status(f"popped {npopped} bubbles: {int(g.n)} -> {int(g2.n)} kmers")
+    _save_graph(args.out, h, g2)
     status(f"time split: {timing.summary()}")
     return 0

@@ -1,20 +1,27 @@
-"""mctx-torch subcommands of mccortex_tpu/cli/commands3.py: correct and
-links.
+"""mctx-torch subcommands of mccortex_tpu/cli/commands3.py: correct,
+links, breakpoints, calls2vcf, vcfcov and vcfgeno.
 
 correct bridges the gaps of each read (of each mate pair, across the
 insert) through the graph with align/correct.py, the reads mapped to
 node paths by the batched lookup (on a CUDA store the lookup kernel);
 links traces every link along the graph on the device and cleans or
 inspects the junction trees on the host (links/link_tree.py).
+breakpoints walks the non-reference branches of the graph
+(calls/breakpoints.py); calls2vcf and vcfgeno are host code on a call
+file or a VCF; vcfcov looks the haplotypes' kmers up in the graph
+(calls/genotyping.py, the lookup kernel on the card).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gzip
+import json
 
 import numpy as np
 
+from ..align import nw
 from ..utils import timing
 from .commands import (_load_graphs, _mask_reads, _not_ported,
                        _without_device)
@@ -396,4 +403,386 @@ def cmd_links(argv):
                                _without_device(argv)),
                            prev_commands=hdr.get("commands"))
     status(f"time split: {timing.summary()}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# breakpoints, calls2vcf, vcfcov, vcfgeno (ref ctx_breakpoints.c,
+# ctx_calls2vcf.c, ctx_vcfcov.c, ctx_vcfgeno.c)
+# ---------------------------------------------------------------------------
+
+def cmd_breakpoints(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch breakpoints")
+    p.add_argument("-s", "--seq", required=True,
+                   help="trusted reference FASTA (indexed for colinear "
+                        "runs; the graph should contain the reference "
+                        "as a colour — build/join it in, as the "
+                        "pipeline does)")
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("-p", "--paths", action="append", default=[])
+    p.add_argument("-r", "--minref", type=int, default=5)
+    p.add_argument("-R", "--maxref", type=int, default=1000)
+    p.add_argument("-E", "--no-ref-edges", action="store_true",
+                   help="ref ctx_breakpoints -E: don't load edges from "
+                        "the reference.  Here the reference is a graph "
+                        "colour supplied by the user, so its edges are "
+                        "whatever the graph holds; accepted for parity")
+    p.add_argument("--devices", default=None,
+                   help="devices to run on; more than 1 is not yet ported")
+    p.add_argument("ctx", nargs="+")
+    add_common(p)
+    args = p.parse_args(argv)
+    if devices_arg(args) > 1:
+        _not_ported(p, "--devices above 1")
+    status, device = apply_common(args, args.out)
+    timing.SPANS.clear()
+    from .. import __version__
+    from ..calls import breakpoints as bk
+    from ..graph import kmer_occur as KO
+    from ..io import ctp as ctpio
+    h, g = _load_graphs(args.ctx, device)
+    ref = KO.RefGenome.from_fasta(args.seq)
+    links = ctpio.load_link_store(args.paths, g) if args.paths else None
+    with timing.span("call", device):
+        calls = bk.call_breakpoints(g, ref, links, min_ref=args.minref,
+                                    max_ref=args.maxref)
+    hdr = {
+        "file_format": "CtxBreakpoints",
+        "format_version": 4,
+        "ncols": h.ncols,
+        "kmer_size": g.k,
+        "generator": f"mccortex_tpu_torch {__version__}",
+        "commands": [{"cmd": "mctx breakpoints",
+                      "min_ref_flank_kmers": args.minref,
+                      "max_search_kmers": args.maxref}],
+    }
+    with timing.span("write"), gzip.open(args.out, "wt") as fh:
+        fh.write(json.dumps(hdr, indent=2))
+        fh.write("\n\n# generated with mccortex_tpu\n\n")
+        for i, bp in enumerate(calls):
+            runs5 = bp.flank5p_runs or [dict(bp.flank5p_run, qoffset=0)]
+            runs3 = bp.flank3p_runs or [dict(bp.flank3p_run, qoffset=0)]
+            c5 = ",".join(_run_str(ref, r, g.k) for r in runs5)
+            c3 = ",".join(_run_str(ref, r, g.k) for r in runs3)
+            cols = ",".join(map(str, sorted(set(bp.cols))))
+            fh.write(f">brkpnt.call{i}.5pflank chr={c5}\n{bp.flank5p_seq}\n")
+            fh.write(f">brkpnt.call{i}.3pflank chr={c3}\n{bp.flank3p_seq}\n")
+            fh.write(f">brkpnt.call{i}.path cols={cols}\n"
+                     f"{bp.allele_seq}\n\n")
+    status(f"found {len(calls)} breakpoints -> {args.out}")
+    status(f"time split: {timing.summary()}")
+    return 0
+
+
+def cmd_calls2vcf(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch calls2vcf")
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("-O", "--out-fmt", default=None,
+                   choices=["vcf", "vcfgz", "bcf", "ubcf"],
+                   help="output format (ref ctx_calls2vcf -O; default "
+                        "by extension)")
+    p.add_argument("-F", "--flanks", "--mapped", default=None,
+                   help="SAM or BAM of mapped 5' flanks "
+                        "(ref ctx_calls2vcf -F)")
+    p.add_argument("-Q", "--min-mapq", type=int, default=30,
+                   help="min MAPQ for -F placements [30]")
+    p.add_argument("-A", "--max-align", type=int, default=500,
+                   help="max alignment attempted [500]")
+    p.add_argument("-L", "--max-allele", type=int, default=500,
+                   help="max allele length printed [500]")
+    p.add_argument("-m", "--match", type=int, default=1,
+                   help="alignment match score [1]")
+    p.add_argument("-M", "--mismatch", type=int, default=-2,
+                   help="alignment mismatch score [-2]")
+    p.add_argument("-g", "--gap-open", type=int, default=-4,
+                   help="alignment gap-open score [-4]")
+    p.add_argument("-G", "--gap-extend", type=int, default=-1,
+                   help="alignment gap-extend score [-1]")
+    p.add_argument("calls", help="bubble or breakpoint call file")
+    p.add_argument("ref", help="reference FASTA")
+    add_common(p)
+    args = p.parse_args(argv)
+    status, _device = apply_common(args, args.out)
+    from ..calls import calls2vcf as c2v
+    from ..graph import kmer_occur as KO
+    from ..io import callfile, vcf as vcfio
+    # the scores of this call only (mctx sets them process-wide)
+    scoring = nw.Scoring(args.match, args.mismatch, args.gap_open,
+                         args.gap_extend)
+    ref = KO.RefGenome.from_fasta(args.ref)
+    hdr, calls = callfile.read_call_file(args.calls)
+    k = hdr.get("kmer_size")
+    if not k:
+        raise ValueError(f"{args.calls}: header lacks kmer_size")
+    fmt = hdr.get("file_format", "")
+    if fmt == "CtxBreakpoints":
+        records, dropped = _breakpoint_calls_to_vcf(
+            calls, ref, k, c2v, max_align=args.max_align,
+            max_allele=args.max_allele, scoring=scoring)
+    else:
+        sam_places = None
+        if args.flanks:
+            sam_places = c2v.load_flank_sam(args.flanks, ref,
+                                            args.min_mapq)
+        records, dropped = c2v.bubbles_to_vcf(
+            calls, ref, k, sam_places=sam_places,
+            max_align=args.max_align, max_allele=args.max_allele,
+            scoring=scoring)
+    out = vcfio.VcfFile(
+        headers=vcfio.std_headers(
+            args.ref, contigs=[(n, len(s))
+                               for n, s in zip(ref.names, ref.seqs)]),
+        sample_names=[], records=records)
+    vcfio.write_variants(args.out, out, fmt=args.out_fmt)
+    status(f"wrote {len(records)} variants ({dropped} calls dropped)")
+    return 0
+
+
+def _run_str(ref, r, k):
+    """One colinear ref-run annotation 'chrom:start-end:strand:qoffset'
+    in the reference's korun_gzprint format (kmer_occur.c): 1-based
+    INCLUSIVE base coordinates (end covers the last kmer's final base;
+    start > end on the minus strand), qoffset 1-based in kmers."""
+    if r["strand"] == 0:
+        s, e = r["first"] + 1, r["last"] + k
+    else:
+        s, e = r["first"] + k, r["last"] + 1
+    return (f"{ref.names[r['chrom']]}:{s}-{e}:"
+            f"{'+' if r['strand'] == 0 else '-'}:"
+            f"{int(r.get('qoffset', 0)) + 1}")
+
+
+def _breakpoint_calls_to_vcf(calls, ref, k, c2v, max_align: int = 500,
+                             max_allele: int = 500,
+                             scoring: nw.Scoring = nw.DEFAULT):
+    """Adapt text breakpoint calls (with chr= annotations) into the
+    direct decomposition path (a copy of the JAX package's, the
+    alignment scores passed down)."""
+    from ..io import vcf as vcfio
+    from ..utils.dna import revcomp
+    name_idx = {n: i for i, n in enumerate(ref.names)}
+    records, dropped = [], 0
+    for call in calls:
+        try:
+            # largest-match run choice per flank (ref decomp_brkpt_call:
+            # 5' prefers the run nearest the break among the longest,
+            # 3' the earliest re-contact among the longest)
+            r5 = _largest_run(_parse_chr_runs(call, "flank5p",
+                                              name_idx, k), False)
+            r3 = _largest_run(_parse_chr_runs(call, "flank3p",
+                                              name_idx, k), True)
+            allele = call["branches"][0][1] if call["branches"] else ""
+        except (KeyError, ValueError):
+            dropped += 1
+            continue
+        if r5 is None or r3 is None or r5["chrom"] != r3["chrom"] or \
+           r5["strand"] != r3["strand"]:
+            dropped += 1     # unmapped / diff chrom / diff strands
+            continue
+        ci = r5["chrom"]
+        cseq = ref.seqs[ci]
+        fw = r5["strand"] == 0
+        f5seq = call.get("flank5p", "")
+        f3seq = call.get("flank3p", "")
+        # footprints in forward ref coords (runs are kmer starts;
+        # minus runs have first > last)
+        f5lo, f5hi = (min(r5["first"], r5["last"]),
+                      max(r5["first"], r5["last"]) + k)
+        f3lo, f3hi = (min(r3["first"], r3["last"]),
+                      max(r3["first"], r3["last"]) + k)
+        # our 3' flank sequence starts AT the re-contact kmer, so the
+        # allele/ref boundary sits k-1 bases into the 3' footprint
+        if fw:
+            ref_start, ref_end = f5hi, f3lo + (k - 1)
+        else:
+            ref_start, ref_end = f3hi - (k - 1), f5lo
+        # flank bases beyond the matched runs join the allele (ref
+        # decomp_brkpt_call flank trims); with our caller's runs these
+        # are zero, but foreign files may differ
+        trim5 = max(len(f5seq) - (r5["qoffset"] + (f5hi - f5lo)), 0)
+        trim3 = min(max(r3["qoffset"], 0), len(f3seq))
+        if ref_end < ref_start:
+            # overlapping flank mappings: trim flanks into the allele
+            diff = ref_start - ref_end
+            t5 = min(diff, len(f5seq) - trim5)
+            trim5 += t5
+            diff -= t5
+            t3 = min(diff, len(f3seq) - trim3)
+            trim3 += t3
+            diff -= t3
+            if diff > 0:
+                dropped += 1     # flanks overlap too much (ref -4)
+                continue
+            if fw:
+                ref_start, ref_end = ref_start - t5, ref_end + t3
+            else:
+                ref_start, ref_end = ref_start - t3, ref_end + t5
+        branch = ((f5seq[len(f5seq) - trim5:] if trim5 else "")
+                  + allele + f3seq[:trim3])
+        if not fw:
+            branch = revcomp(branch)
+        if max(ref_end - ref_start, len(branch)) > max_align:
+            dropped += 1     # alignment too long to attempt (ref -A)
+            continue
+        recs = nw.decompose(cseq[ref_start:ref_end], branch, ref_start,
+                            cseq, scoring)
+        for (p0, r, a) in recs:
+            if r != a and max(len(r), len(a)) <= max_allele:
+                records.append(vcfio.VcfRecord(
+                    chrom=ref.names[ci], pos=p0, vid=call["name"],
+                    ref=r, alts=[a]))
+    return c2v._dedup(records), dropped
+
+
+def _parse_chr_runs(call, which, name_idx, k):
+    """Parse the comma-separated colinear-run list
+    'chr=name:start-end:strand:qoffset,...' from a flank header (ref
+    chrom_pos_list_parse, chrom_pos_list.c).  Coordinates are the
+    1-based inclusive BASE range of _run_str; converted back to 0-based
+    kmer-start first/last.  The legacy 3-field round-2 form (kmer-start
+    coords, no qoffset) is still accepted."""
+    hdr = call.get(which + "_hdr", "")
+    for tok in hdr.split():
+        if not tok.startswith("chr="):
+            continue
+        runs = []
+        for body in tok[4:].split(","):
+            parts = body.rsplit(":", 3)
+            legacy = len(parts) < 4 or not parts[-1].isdigit() or \
+                parts[-2] not in ("+", "-")
+            if legacy:
+                name, rng, strand = body.rsplit(":", 2)
+                qoff = 1
+            else:
+                name, rng, strand, q = parts
+                qoff = int(q)
+            if name not in name_idx:
+                continue
+            s, e = (int(x) for x in rng.split("-"))
+            if legacy:
+                first, last = s - 1, e - 1
+            elif strand == "+":
+                first, last = s - 1, e - k
+            else:
+                first, last = s - k, e - 1
+            runs.append({"chrom": name_idx[name], "first": first,
+                         "last": last,
+                         "strand": 0 if strand == "+" else 1,
+                         "qoffset": qoff - 1,
+                         "len": abs(last - first) + 1})
+        return runs
+    return []
+
+
+def _largest_run(runs, use_first):
+    """ref chrom_pos_list_get_largest: the longest run; ties broken by
+    the lowest qoffset (use_first, 3' flank) or the highest (5')."""
+    best = None
+    for r in runs:
+        if best is None or r["len"] > best["len"] or (
+                r["len"] == best["len"]
+                and (use_first == (r["qoffset"] < best["qoffset"]))):
+            best = r
+    return best
+
+
+def cmd_vcfcov(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch vcfcov")
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("-O", "--out-fmt", default=None,
+                   choices=["vcf", "vcfgz", "bcf", "ubcf"])
+    p.add_argument("-r", "--ref", required=True)
+    p.add_argument("-N", "--max-nvars", type=int, default=8,
+                   help="limit haplotypes to <= N variants [8]")
+    p.add_argument("-L", "--max-var-len", type=int, default=100,
+                   help="only use alleles <= this many bases [100]")
+    p.add_argument("-M", "--low-mem", action="store_true",
+                   help="ref two-pass mode; this implementation always "
+                        "streams windows (accepted for parity)")
+    p.add_argument("-H", "--high-mem", action="store_true",
+                   help="ref one-pass mode (accepted for parity)")
+    p.add_argument("vcf")
+    p.add_argument("ctx", nargs="+")
+    add_common(p)
+    args = p.parse_args(argv)
+    status, device = apply_common(args, args.out)
+    timing.SPANS.clear()
+    from ..calls import genotyping as gt
+    from ..graph import kmer_occur as KO
+    from ..io import vcf as vcfio
+    h, g = _load_graphs(args.ctx, device)
+    ref = KO.RefGenome.from_fasta(args.ref)
+    vcf = vcfio.read_variants(args.vcf)
+    if not vcf.sample_names:
+        vcf.sample_names = [gi.sample_name for gi in h.ginfo]
+    with timing.span("cover", device):
+        gt.vcfcov(vcf, ref, g, max_nvars=args.max_nvars,
+                  max_var_len=args.max_var_len)
+    with timing.span("write"):
+        vcfio.write_variants(args.out, vcf, fmt=args.out_fmt)
+    status(f"annotated {len(vcf.records)} records with K{g.k}R/K{g.k}A")
+    status(f"time split: {timing.summary()}")
+    return 0
+
+
+def cmd_vcfgeno(argv):
+    p = argparse.ArgumentParser(prog="mctx-torch vcfgeno")
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("-O", "--out-fmt", default=None,
+                   choices=["vcf", "vcfgz", "bcf", "ubcf"])
+    p.add_argument("-k", "--kmer", type=int, required=True)
+    p.add_argument("-E", "--err", default="0.01",
+                   help="per-sample error rates (comma list or one)")
+    p.add_argument("-C", "--kcov", default=None,
+                   help="kmer coverage per sample (comma list)")
+    p.add_argument("-D", "--cov", default=None,
+                   help="read depth per sample (comma list); "
+                        "kcov = D*(R-k+1)/R")
+    p.add_argument("-P", "--ploidy", action="append", default=[],
+                   help="'<P>' or 'sample:chr:ploidy' (comma lists, "
+                        "'.' = all; repeatable, applied in order — ref "
+                        "ctx_vcfgeno -P) [default: 2]")
+    p.add_argument("-l", "--llk", action="store_true",
+                   help="print all genotype log10 likelihoods "
+                        "(FORMAT/GL; ref ctx_vcfgeno -l)")
+    p.add_argument("-r", "--rm-cov", action="store_true",
+                   help="remove the tags set by vcfcov")
+    p.add_argument("-R", "--read-len", default="100",
+                   help="mean read length per sample (comma list)")
+    p.add_argument("vcf")
+    add_common(p)
+    args = p.parse_args(argv)
+    status, _device = apply_common(args, args.out)
+    from ..calls import vcfgeno as vg
+    from ..io import vcf as vcfio
+    if (args.kcov is None) == (args.cov is None):
+        p.error("give exactly one of --kcov / --cov")
+    vcf = vcfio.read_variants(args.vcf)
+    S = max(len(vcf.sample_names), 1)
+
+    def parse_list(s, cast=float):
+        vals = [cast(x) for x in str(s).split(",")]
+        return vals * S if len(vals) == 1 else vals
+
+    k = args.kmer
+    readlens = parse_list(args.read_len)
+    readlensk = [max(r - k + 1, 1) for r in readlens]
+    if args.kcov:
+        kcovs = parse_list(args.kcov)
+    else:
+        covs = parse_list(args.cov)
+        kcovs = [d * (r - k + 1) / r for d, r in zip(covs, readlens)]
+    errs = parse_list(args.err)
+    specs = args.ploidy or ["2"]
+    if any(":" in s for s in specs):
+        ploidies = vg.ploidy_matcher(specs, vcf.sample_names)
+    elif len(specs) == 1 and "," in specs[0]:
+        ploidies = parse_list(specs[0], int)
+    else:
+        ploidies = parse_list(specs[-1], int)
+    ndone, nskip = vg.genotype_vcf(vcf, k, kcovs, errs, ploidies,
+                                   readlensk, add_gl=args.llk,
+                                   rm_cov=args.rm_cov)
+    vcfio.write_variants(args.out, vcf, fmt=args.out_fmt)
+    status(f"genotyped {ndone} records ({nskip} skipped)")
     return 0

@@ -6,7 +6,7 @@ import sys
 
 
 def _commands() -> dict:
-    from . import commands, commands2, commands3
+    from . import commands, commands2, commands3, pipeline
     return {"build": (commands.cmd_build, "reads -> coloured .ctx graph"),
             "view": (commands.cmd_view, "print graph info / kmers"),
             "check": (commands.cmd_check, "validate graph file integrity"),
@@ -40,7 +40,21 @@ def _commands() -> dict:
                          "per-kmer coverage of reads"),
             "correct": (commands3.cmd_correct,
                         "error-correct reads against the graph"),
-            "links": (commands3.cmd_links, "clean / inspect link files")}
+            "links": (commands3.cmd_links, "clean / inspect link files"),
+            "bubbles": (commands.cmd_bubbles,
+                        "call bubbles between colours"),
+            "popbubbles": (commands2.cmd_popbubbles,
+                           "pop simple bubbles"),
+            "breakpoints": (commands3.cmd_breakpoints,
+                            "call breakpoints vs reference"),
+            "calls2vcf": (commands3.cmd_calls2vcf,
+                          "decompose calls into VCF"),
+            "vcfcov": (commands3.cmd_vcfcov,
+                       "annotate VCF with kmer coverage"),
+            "vcfgeno": (commands3.cmd_vcfgeno,
+                        "genotype VCF from kmer coverage"),
+            "pipeline": (pipeline.cmd_pipeline,
+                         "run the full multi-sample workflow")}
 
 
 def main(argv=None):

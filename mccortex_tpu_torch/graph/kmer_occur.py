@@ -114,45 +114,44 @@ def runs_of_path(ko: KOGraph, verts: np.ndarray, min_len: int = 1):
     list of dicts {chrom, first, last, strand, qoffset, len} where
     qoffset is the index in the path where the run starts; strand 0
     means reference positions increase along the path.
+
+    The JAX package extends runs vertex by vertex in a dict; here every
+    occurrence of every path vertex is laid out at once: an occurrence at
+    path index q and reference offset p continues the run of the
+    occurrence at q - 1 and p - 1 (strand 0) or p + 1 (strand 1), so a
+    run is a stretch of consecutive q on one diagonal (chrom, strand,
+    p -/+ q).  Same runs, same order.
     """
     offs = ko.offsets.cpu().numpy()
-    chrom = ko.chrom.cpu().numpy()
-    pos = ko.pos.cpu().numpy()
-    kor = ko.orient.cpu().numpy()
-    out = []
-    # active runs keyed by (chrom, strand, EXPECTED next ref pos), so that
-    # several runs on one chrom and strand coexist (a repetitive flank
-    # occurs at several reference positions at once)
-    prev = {}  # key -> (q0, p_start)
-    for qi, v in enumerate(verts):
-        row, vo = v >> 1, v & 1
-        cur = {}
-        for e in range(offs[row], offs[row + 1]):
-            # strand of this occurrence relative to the path direction:
-            # occurrence orient is canonical key vs reference; vo is key
-            # vs path
-            strand = int(kor[e]) ^ int(vo)
-            c, p0 = int(chrom[e]), int(pos[e])
-            ext = prev.pop((c, strand, p0), None)
-            nxt = p0 + 1 if strand == 0 else p0 - 1
-            if ext is not None:
-                cur[(c, strand, nxt)] = ext          # extend
-            else:
-                cur[(c, strand, nxt)] = (qi, p0)     # start new run
-        # close runs not extended at this vertex
-        for (c, strand, expect), (q0, p_start) in prev.items():
-            p_last = expect - 1 if strand == 0 else expect + 1
-            out.append(_mk_run((c, strand), p_start, p_last, q0, qi - q0))
-        prev = cur
-    for (c, strand, expect), (q0, p_start) in prev.items():
-        p_last = expect - 1 if strand == 0 else expect + 1
-        out.append(_mk_run((c, strand), p_start, p_last, q0,
-                           len(verts) - q0))
-    out.sort(key=lambda r: (r["qoffset"], r["chrom"], r["first"]))
-    return [r for r in out if r["len"] >= min_len]
-
-
-def _mk_run(keyp, p_start, p_last, q0, ln):
-    c, strand = keyp
-    return {"chrom": c, "first": p_start, "last": p_last,
-            "strand": strand, "qoffset": q0, "len": ln}
+    verts = np.asarray(verts, np.int64)
+    rows = verts >> 1
+    start = offs[rows].astype(np.int64)
+    cnt = offs[rows + 1].astype(np.int64) - start
+    n = int(cnt.sum())
+    if n == 0:
+        return []
+    q = np.repeat(np.arange(len(verts)), cnt)
+    e = np.arange(n) - np.repeat(np.cumsum(cnt) - cnt, cnt) + \
+        np.repeat(start, cnt)
+    c = ko.chrom.cpu().numpy()[e].astype(np.int64)
+    p = ko.pos.cpu().numpy()[e].astype(np.int64)
+    # strand of each occurrence relative to the path direction:
+    # occurrence orient is canonical key vs reference; vo is key vs path
+    strand = ko.orient.cpu().numpy()[e].astype(np.int64) ^ (verts[q] & 1)
+    diag = np.where(strand == 0, p - q, p + q)
+    order = np.lexsort((q, diag, strand, c))
+    q, c, p, strand, diag = (x[order] for x in (q, c, p, strand, diag))
+    new = np.ones(n, bool)
+    new[1:] = ((c[1:] != c[:-1]) | (strand[1:] != strand[:-1])
+               | (diag[1:] != diag[:-1]) | (q[1:] != q[:-1] + 1))
+    first = np.nonzero(new)[0]
+    last = np.append(first[1:], n) - 1
+    ln = last - first + 1
+    keep = ln >= min_len
+    first, last, ln = first[keep], last[keep], ln[keep]
+    srt = np.lexsort((p[first], c[first], q[first]))
+    return [{"chrom": cc, "first": pf, "last": pl, "strand": st,
+             "qoffset": qq, "len": ll}
+            for cc, pf, pl, st, qq, ll in zip(
+                *(x[srt].tolist() for x in (c[first], p[first], p[last],
+                                            strand[first], q[first], ln)))]

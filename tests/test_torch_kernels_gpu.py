@@ -907,3 +907,95 @@ def test_reads_correct_commands_on_card_match_cpu(cuda, pair_inputs,
     assert got["cpu"][0] and all(len(v) for v in got["cpu"][0].values())
     assert got["cuda"][2].get("lookup", 0) > 0
     assert not got["cpu"][2].get("lookup", 0)
+
+
+@pytest.fixture(scope="module")
+def calling_inputs(tmp_path_factory):
+    """A k=31 graph in two colours: a sample (reads of a 20 kb genome with
+    12 SNPs, a 5 bp deletion and an 8 bp insertion planted) and its
+    reference; the bubble calls, VCF and covered VCF the calling
+    commands read.  Made on the CPU, only where there is a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mccortex_tpu_torch.cli.main import main
+    d = tmp_path_factory.mktemp("calling_gpu")
+    rng = np.random.default_rng(15)
+    genome = "".join("ACGT"[c] for c in rng.integers(0, 4, 20_000))
+    sample = list(genome)
+    for p in range(1_000, 19_000, 1_500):
+        sample[p] = "ACGT"[("ACGT".index(genome[p]) + 1) % 4]
+    sample[5_600:5_605] = []
+    sample[12_300:12_300] = list("GATTACAG")
+    sample = "".join(sample)
+    starts = rng.integers(0, len(sample) - 100, 3_000)
+    p = {k: str(d / v) for k, v in (
+        ("REF", "ref.fa"), ("READS", "reads.fa"), ("CTX", "g.ctx"),
+        ("BUB", "bub.txt.gz"), ("VCF", "calls.vcf"), ("COVVCF", "cov.vcf"))}
+    with open(p["REF"], "w") as fh:
+        fh.write(f">chr1\n{genome}\n")
+    with open(p["READS"], "w") as fh:
+        for i, s in enumerate(starts):
+            fh.write(f">r{i}\n{sample[s:s + 100]}\n")
+    cpu = ["--device", "cpu", "-q"]
+    for argv in (["build", "-k", "31", "-s", "s", "--seq", p["READS"],
+                  str(d / "s.ctx")],
+                 ["build", "-k", "31", "-s", "ref", "--seq", p["REF"],
+                  str(d / "r.ctx")],
+                 ["join", "-o", p["CTX"], str(d / "s.ctx"), str(d / "r.ctx")],
+                 ["bubbles", "-o", p["BUB"], p["CTX"]],
+                 ["calls2vcf", "-o", p["VCF"], p["BUB"], p["REF"]],
+                 ["vcfcov", "-r", p["REF"], "-o", p["COVVCF"], p["VCF"],
+                  p["CTX"]]):
+        assert main(argv + cpu) == 0
+    p["d"] = d
+    return p
+
+
+@pytest.mark.parametrize("cmd,lookup", [
+    (["bubbles", "-H", "1", "-o", "OUT", "CTX"], True),
+    (["popbubbles", "-o", "OUT", "CTX"], True),
+    (["calls2vcf", "-O", "bcf", "-o", "OUT", "BUB", "REF"], False),
+    (["breakpoints", "-s", "REF", "-o", "OUT", "CTX"], True),
+    (["vcfcov", "-r", "REF", "-o", "OUT", "VCF", "CTX"], True),
+    (["vcfgeno", "-k", "31", "--kcov", "20", "-l", "-o", "OUT", "COVVCF"],
+     False),
+    (["pipeline", "-k", "31", "--sample", "s:READS", "--ref", "REF",
+      "--kcov", "20", "-o", "OUT"], True)])
+def test_calling_command_on_card_matches_cpu(cuda, calling_inputs,
+                                             monkeypatch, capsys, cmd,
+                                             lookup):
+    """bubbles, popbubbles, calls2vcf, breakpoints, vcfcov, vcfgeno and
+    pipeline write the same bytes (decompressed, the date fixed) and
+    status from the card as from the plain versions on the CPU.  Those
+    that read a graph launch the lookup kernel on the card; calls2vcf
+    and vcfgeno read only a call file or a VCF and launch nothing."""
+    import os
+    import re
+    import shutil
+    import time
+    from mccortex_tpu_torch.cli.main import main
+    p = calling_inputs
+    monkeypatch.setattr(time, "strftime", lambda fmt, *a: "fixed")
+    out = str(p["d"] / "call_out")
+    argv = [out if x == "OUT" else ":".join(p.get(y, y) for y in
+                                            x.split(":")) for x in cmd]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        if os.path.isdir(out):
+            shutil.rmtree(out)
+        elif os.path.exists(out):
+            os.remove(out)
+        _build.LAUNCHES.clear()
+        capsys.readouterr()
+        assert main(argv + ["--device", dev]) == 0
+        # the pipeline's build steps name the device and time themselves
+        err = re.sub(r"time split: .*|[\d.]+s\b|on .* \(sort engine", "",
+                     capsys.readouterr().err)
+        paths = ([os.path.join(out, f) for f in sorted(os.listdir(out))]
+                 if os.path.isdir(out) else [out])
+        files = {os.path.basename(f): _text_of(f) for f in paths}
+        got[dev] = (files, err, dict(_build.LAUNCHES))
+    assert got["cuda"][:2] == got["cpu"][:2]
+    assert all(len(v) for v in got["cpu"][0].values())
+    assert (got["cuda"][2].get("lookup", 0) > 0) == lookup
+    assert not got["cpu"][2]
