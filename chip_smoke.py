@@ -129,6 +129,29 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    walker steps, one bubbles walk under torch.profiler (device
    operations a step, busy share), and recall and false calls split
    into SNPs and indels;
+4h. the rest of the CLI on the cleaned graph of 4b: `server -C -E`
+   answers 20,020 queries from standard input in-process (10,000 graph
+   kmers, half of them reverse complemented, 10,000 random kmers, 20
+   malformed lines), each reply held to a numpy lookup, one lookup
+   kernel launch a kmer, queries/s printed; the same queries through
+   `server --disk` on a `sort` + `index` copy (the same found flags,
+   colours and edges); `server -p` of 4e's gap-filled links for 200
+   linked kmers (the junction strings the .ctp's); `hashtest -n
+   8388608` at k=31 and k=63 (front-end and segreduce launched; rates
+   printed); `exp_abc -N 512 -M 100 -p` with those links (the five
+   counts sum to 512; the success share printed);
+4i. the multi-device paths on the one card (parallel/shard.py):
+   build_sharded of phase 4's reads over [cuda:0] * 4, whose .ctx
+   must be phase 4's lax .ctx byte for byte (its wall beside
+   graph/build.build's of the same batches; the front-end, segreduce
+   and merge-path launches printed); lookup_sharded over those 4 shards
+   at Q = 4,096 and Q = N against hashidx.lookup of the one store; over
+   [cuda:0] * 2, assemble_linkless_contigs of 512 seeds of 4b's graph,
+   thread_reads of its first 65,536 reads and call_bubbles of 4g's
+   joined graph, each equal to its one-device result (the bubbles to
+   4g's file).  On a host of two or more cards, `build`, `contigs`,
+   `thread --no-gap-fill` and `bubbles` also run through the CLI with
+   --devices 2 against one card's bytes; on one card a line says so;
 5. byte identity: a 2-colour build of a 200 kb genome at k=31 and k=63
    (k=31 under every sort engine), colour a's reads as SAM, BAM and CRAM
    (each must give the FASTQ build's bytes), a --graph + --seq2 -p
@@ -162,7 +185,13 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
 5g. `mctx-torch pipeline` once on the card, on the 100 kb diploid case
    of tests/test_pipeline_scale.py (its seeded simulation copied): every
    truth variant and the 400 bp deletion in its VCF, GT in the
-   genotyped VCF.
+   genotyped VCF;
+5h. on phase 5's cleaned 200 kb graph, on the card and on the CPU:
+   `server -C -E` and `server --disk` (a `sort` + `index` copy) replies
+   to 2,020 queries (each held to numpy), `exp_abc -N 32 -M 50 -P -p`
+   with 5d's links, and build_sharded of the first 4 batches of each of
+   phase 5's colours on a 2 x 2 grid of one device (against the flat
+   build): equal on both.
 
 Prints a JSON line of per-kernel results (segreduce's launches split into
 the epochs' and the merges'), then `{"ok": true, "device":
@@ -3257,6 +3286,428 @@ def phase_pipeline(tmp, card):
 
 
 
+# ---------------------------------------------------------------------------
+# 4h, 4i, 5h: the rest of the CLI and the multi-device runs
+# ---------------------------------------------------------------------------
+
+N_SERVER_Q = 20_000       # 4h's server queries: half graph kmers, half not
+N_SERVER_BAD = 20         # 4h's malformed query lines among them
+N_LINKED_Q = 200          # 4h's linked kmers through server -p
+N_SHARD_SEEDS = 512       # 4i's contig seeds on [cuda:0] * 2
+N_SHARD_THREAD = 65_536   # 4i's reads threaded on [cuda:0] * 2
+EXP_ABC_M = 100           # 4h's exp_abc -M (walks of up to 202 steps; 200
+                          # took 9 s)
+N_GRID_BATCHES = 4        # 5h's batches of each colour in the 2 x 2 grid
+
+
+def serve(argv, lines):
+    """`mctx-torch server` in-process with `lines` as its standard input.
+    Returns (reply lines, wall seconds)."""
+    saved = sys.stdin
+    sys.stdin = io.StringIO("\n".join(lines) + "\n")
+    try:
+        t0 = time.perf_counter()
+        out, _err = run_cli_out(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        sys.stdin = saved
+    return out.splitlines(), wall
+
+
+def kmer_strings(codes: np.ndarray) -> list:
+    return [r.tobytes().decode() for r in np.frombuffer(b"ACGT", np.uint8)[
+        codes]]
+
+
+def server_queries(keys: np.ndarray, k: int, n: int, seed: int):
+    """n query lines for a graph of (N, 1) uint64 keys: half its kmers
+    (every other one reverse complemented), half random kmers, and
+    N_SERVER_BAD malformed lines, shuffled; with the canonical key of
+    each line (None where malformed)."""
+    rng = np.random.default_rng(seed)
+    sh = np.arange(k - 1, -1, -1, dtype=np.uint64) * np.uint64(2)
+    rows = rng.integers(0, len(keys), n // 2)
+    codes = ((keys[rows, 0][:, None] >> sh) & np.uint64(3)).astype(np.uint8)
+    codes[1::2] = 3 - codes[1::2, ::-1]
+    rand = rng.integers(0, 4, (n - n // 2, k)).astype(np.uint8)
+    allc = np.concatenate([codes, rand])
+    canon = canonical_kmers_np(allc, k)
+    lines = kmer_strings(allc)
+    bad = ["N" * k, "ACGT", "hello", "A" * (k + 1)] * (N_SERVER_BAD // 4)
+    order = rng.permutation(len(lines) + len(bad))
+    lines = [(lines + bad)[i] for i in order]
+    canon = [(list(canon) + [None] * len(bad))[i] for i in order]
+    return lines, canon
+
+
+def check_replies(replies, lines, canon, keys, covg, edges, label) -> int:
+    """Every reply held to a numpy lookup of its query.  Returns the
+    number found."""
+    from mccortex_tpu_torch.utils.text import edges_to_strings
+    if len(replies) != len(lines):
+        fail(f"{label}: {len(replies)} replies to {len(lines)} queries")
+    kv = keys[:, 0]
+    q = np.array([c if c is not None else 0 for c in canon], np.uint64)
+    row, found = rows_of(kv, q)
+    nfound = 0
+    for i, line in enumerate(replies):
+        r = json.loads(line)
+        if canon[i] is None:
+            if "error" not in r:
+                fail(f"{label}: no error for the malformed {lines[i]!r}")
+            continue
+        if r.get("key") != lines[i] or r["find"] != bool(found[i]):
+            fail(f"{label}: reply {line} to {lines[i]} (numpy: found "
+                 f"{bool(found[i])})")
+        if found[i]:
+            nfound += 1
+            j = row[i]
+            if r["colours"] != covg[j].tolist() or \
+                    r["edges"] != edges_to_strings(edges[j][None, :])[0]:
+                fail(f"{label}: reply {line}: numpy has {covg[j]}, "
+                     f"{edges[j]}")
+    return nfound
+
+
+def phase_rest_cli(torch, tmp, card) -> int:
+    """4h: the rest of the CLI on the cleaned E. coli graph of phase 4b:
+    `server -C -E` (in memory), the same queries through `server --disk`
+    on a `sort` + `index` copy, `server -p` of 4e's gap-filled links for
+    N_LINKED_Q linked kmers, `hashtest` at k=31 and k=63, `exp_abc` with
+    those links.  Returns the lookup kernel's launches."""
+    from mccortex_tpu_torch.io import ctx as ctxio
+    from mccortex_tpu_torch.ops.kernels import _build
+
+    t_phase = time.perf_counter()
+    cln = os.path.join(tmp, "clean.ctx")
+    gap_ctp = os.path.join(tmp, "links_gap.ctp.gz")
+    _h, keys, covg, edges = ctxio.read_ctx(cln)
+    lines, canon = server_queries(keys, K_MAIN, N_SERVER_Q, seed=12)
+    nq = sum(c is not None for c in canon)
+    _build.LAUNCHES.clear()
+    mem, wall = serve(["server", "-C", "-E", cln, "--device", "cuda"], lines)
+    lookups = _build.LAUNCHES["lookup"]
+    if lookups < nq:
+        fail(f"4h: server made {lookups} lookup launches for {nq} kmers")
+    nfound = check_replies(mem, lines, canon, keys, covg, edges, "server")
+    print(f"4h on {card}: mctx-torch server -C -E of the {len(keys)}-kmer "
+          f"cleaned graph: {len(lines)} queries ({nfound} found, "
+          f"{nq - nfound} absent, {len(lines) - nq} malformed) in "
+          f"{wall:.3f}s = {len(lines) / wall:.0f} queries/s, every reply "
+          f"equal to numpy's; lookup launches {lookups}")
+    # --disk on a sorted, indexed copy: the same found flags, colours, edges
+    srt = os.path.join(tmp, "clean_sorted.ctx")
+    t0 = time.perf_counter()
+    run_cli(["sort", "-o", srt, cln, "--device", "cuda"])
+    run_cli(["index", srt, "--device", "cuda"])
+    sort_s = time.perf_counter() - t0
+    disk, dwall = serve(["server", "--disk", srt, "--device", "cuda"], lines)
+    for a, b in zip(mem, disk):
+        ra, rb = json.loads(a), json.loads(b)
+        if {x: ra.get(x) for x in ("error", "find", "colours", "edges")} != \
+                {x: rb.get(x) for x in ("error", "find", "colours", "edges")}:
+            fail(f"4h: server --disk replied {b} where in memory {a}")
+    print(f"4h: mctx-torch server --disk (a copy by sort + index in "
+          f"{sort_s:.3f}s): the same {len(disk)} replies (found, colours, "
+          f"edges) in {dwall:.3f}s = {len(lines) / dwall:.0f} queries/s "
+          f"on the host")
+    # -p: the junctions of linked kmers, held to the .ctp's
+    kms, ors, juncs = parse_ctp_links(gap_ctp)
+    want = {}
+    for km, o, j in zip(kms, ors, juncs):
+        want.setdefault(km, []).append((o == 0, j))
+    pick = sorted(want)[:N_LINKED_Q]
+    _build.LAUNCHES.clear()
+    rep, pwall = serve(["server", "-p", gap_ctp, cln, "--device", "cuda"],
+                       pick)
+    lookups += _build.LAUNCHES["lookup"]
+    for km, line in zip(pick, rep):
+        got = sorted((x["forward"], x["juncs"])
+                     for x in json.loads(line)["links"])
+        if got != sorted(want[km]):
+            fail(f"4h: server -p lists {got} for {km}, the .ctp "
+                 f"{sorted(want[km])}")
+    print(f"4h: mctx-torch server -p: {len(pick)} linked kmers, "
+          f"{sum(len(want[x]) for x in pick)} links, every junction string "
+          f"the .ctp's; {pwall:.3f}s with the link load")
+    for k in (K_MAIN, 63):
+        _build.LAUNCHES.clear()
+        argv = ["hashtest", "-n", "8388608", "-k", str(k)]
+        log = run_cli(argv + ["--device", "cuda"])
+        for name in ("frontend", "segreduce"):
+            if _build.LAUNCHES[name] <= 0:
+                fail(f"4h: hashtest never launched the {name} kernel")
+        ins = re.search(r"insert: (\d+) kmers \((\d+) unique\) in ([\d.]+)s "
+                        r"\(([\d.]+)M/s\)", log)
+        lk = re.search(r"lookup: (\d+) queries in ([\d.]+)s \(([\d.]+)M/s\)",
+                       log)
+        print(f"4h on {card}: mctx-torch hashtest -n 8388608 -k {k}: insert "
+              f"{ins.group(1)} kmers ({ins.group(2)} unique) in "
+              f"{ins.group(3)}s = {ins.group(4)}M/s; lookup {lk.group(1)} "
+              f"queries in {lk.group(2)}s = {lk.group(3)}M/s")
+    t0 = time.perf_counter()
+    log = run_cli(["exp_abc", "-N", "512", "-M", str(EXP_ABC_M), "-p",
+                   gap_ctp, cln, "--device", "cuda"])
+    counts = dict(re.findall(r"(RES_\w+): (\d+) / 512", log))
+    if len(counts) != 5 or sum(map(int, counts.values())) != 512:
+        fail(f"4h: exp_abc counts {counts} do not sum to 512")
+    print(f"4h on {card}: mctx-torch exp_abc -N 512 -M {EXP_ABC_M} -p: "
+          f"{json.dumps(counts)}, success share "
+          f"{int(counts['RES_ABC_SUCCESS']) / 512:.3f}; wall "
+          f"{time.perf_counter() - t0:.3f}s")
+    print(f"4h: phase wall {time.perf_counter() - t_phase:.1f}s")
+    return lookups
+
+
+def same_store(a, b, label):
+    from mccortex_tpu_torch.graph import store as gstore
+    for x, y in zip(gstore.to_host(a), gstore.to_host(b)):
+        if not np.array_equal(x, y):
+            fail(f"{label}: the stores differ")
+
+
+def phase_sharding(torch, tmp, card, raw) -> dict:
+    """4i: the multi-device paths on one card, shards [cuda:0] * 4 (or
+    * 2): build_sharded of phase 4's reads against phase 4's lax .ctx,
+    lookup_sharded against hashidx.lookup, and contigs, thread and bubbles
+    split over [cuda:0] * 2 against their one-device results; on a host
+    of two or more cards the four commands with --devices 2 too.
+    Returns the launches of the sharded build and lookups."""
+    from mccortex_tpu_torch.calls import bubbles as bub
+    from mccortex_tpu_torch.graph import build as gbuild
+    from mccortex_tpu_torch.graph import store as gstore
+    from mccortex_tpu_torch.graph import traverse as T
+    from mccortex_tpu_torch.io import callfile
+    from mccortex_tpu_torch.io import ctx as ctxio
+    from mccortex_tpu_torch.io import seqio
+    from mccortex_tpu_torch.links import store as lstore
+    from mccortex_tpu_torch.links import thread as lthread
+    from mccortex_tpu_torch.ops import hashidx
+    from mccortex_tpu_torch.ops.kernels import _build
+    from mccortex_tpu_torch.parallel import shard as psh
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    batches = [(c, 0) for c, _q, _col in seqio.read_batches_native(
+        [os.path.join(tmp, "reads.fq")], overlap=K_MAIN)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    one, one_s = timed(lambda: gbuild.build(batches, K_MAIN, 1, dev))
+    _build.LAUNCHES.clear()
+    shards, shard_s = timed(lambda: psh.build_shards(batches, K_MAIN, 1,
+                                                     [dev] * 4))
+    g, asm_s = timed(lambda: psh.assemble(shards, dev))
+    launched = dict(_build.LAUNCHES)
+    for name in ("frontend", "segreduce", "mergepath"):
+        if launched.get(name, 0) <= 0:
+            fail(f"4i: build_sharded never launched the {name} kernel")
+    with open(raw, "rb") as fh:
+        hdr = ctxio.read_header(fh)
+    out = os.path.join(tmp, "sharded.ctx")
+    ctxio.write_ctx(out, hdr, *gstore.to_host(g))
+    if open(out, "rb").read() != open(raw, "rb").read():
+        fail("4i: the sharded build's .ctx differs from phase 4's lax .ctx")
+    same_store(g, one, "4i build_sharded against build")
+    print(f"4i on {card}: build_sharded of {len(batches)} batches over "
+          f"[cuda:0] * 4 in {shard_s + asm_s:.3f}s (shards {shard_s:.3f}s, "
+          f"assembly {asm_s:.3f}s; graph/build.build of the same batches "
+          f"{one_s:.3f}s): {g.n} kmers, shards of "
+          f"{[s.n for s in shards]}, the .ctx byte-identical to phase 4's "
+          f"lax one; launches {json.dumps(launched)}")
+    del one
+    # lookups: routed to the shards against the one store's
+    rng = np.random.default_rng(13)
+    lookups = 0
+    for Q in (4096, g.n):
+        rows = torch.from_numpy(rng.integers(0, g.n, Q)).to(dev)
+        q = g.keys[rows]
+        q[1::3] ^= 4                                  # mostly absent
+        q[2::97] = -1                                 # sentinels
+        psh.lookup_sharded(shards, q)                 # the tables, once
+        hashidx.lookup(g.keys, q)
+        _build.LAUNCHES.clear()
+        (covg, edges, found), sh_s = timed(
+            lambda: psh.lookup_sharded(shards, q))
+        lookups += _build.LAUNCHES["lookup"]
+        (idx, fnd), one_s = timed(lambda: hashidx.lookup(g.keys, q))
+        il = idx.long()
+        if not (torch.equal(found, fnd) and torch.equal(
+                covg, torch.where(fnd[:, None], g.covg[il], 0)) and
+                torch.equal(edges, torch.where(fnd[:, None], g.edges[il],
+                                               0).to(torch.uint8))):
+            fail(f"4i: lookup_sharded at Q={Q} differs from hashidx.lookup")
+        print(f"4i on {card}: lookup_sharded over 4 shards at Q={Q}: "
+              f"{sh_s * 1e3:.3f} ms ({Q / sh_s / 1e6:.2f}M/s; "
+              f"{int(fnd.sum())} found), hashidx.lookup of the one store "
+              f"{one_s * 1e3:.3f} ms ({Q / one_s / 1e6:.2f}M/s); equal")
+    del shards, g
+    torch.cuda.empty_cache()
+    two = [dev] * 2
+    h, keys, covg_np, edges_np = ctxio.read_ctx(os.path.join(tmp,
+                                                             "clean.ctx"))
+    gc = gstore.from_host(keys, covg_np, edges_np, K_MAIN, dev)
+    seeds = rng.choice(gc.n, N_SHARD_SEEDS, replace=False)
+    _c, cold = timed(lambda: T.assemble_linkless_contigs(
+        gc, seeds, max_len=65536))
+    (c1, s1), w1 = timed(lambda: T.assemble_linkless_contigs(
+        gc, seeds, max_len=65536))
+    (c2, s2), w2 = timed(lambda: T.assemble_linkless_contigs(
+        gc, seeds, max_len=65536, devices=two))
+    if c1 != c2 or not np.array_equal(s1, s2):
+        fail("4i: the contigs over [cuda:0] * 2 differ from one device's")
+    print(f"4i: assemble_linkless_contigs of {len(seeds)} seeds over "
+          f"[cuda:0] * 2 in {w2:.3f}s (one device {w1:.3f}s warm, "
+          f"{cold:.3f}s cold): the same {len(c1)} contigs")
+    tb = batches[:N_SHARD_THREAD // 2048]
+    l1, w1 = timed(lambda: lthread.thread_reads(gc, tb, 1))
+    l2, w2 = timed(lambda: lthread.thread_reads(gc, tb, 1, devices=two))
+    for x, y in zip(lstore.to_host(l1), lstore.to_host(l2)):
+        if not np.array_equal(x, y):
+            fail("4i: thread_reads over [cuda:0] * 2 differs from one "
+                 "device's")
+    print(f"4i: thread_reads of {sum(b.shape[0] for b, _ in tb)} reads over "
+          f"[cuda:0] * 2 in {w2:.3f}s (one device {w1:.3f}s): the same "
+          f"{l1.nlinks} links")
+    del gc, l1, l2
+    joint = os.path.join(tmp, "call_joint.ctx")
+    hj, kj, cj, ej = ctxio.read_ctx(joint)
+    gj = gstore.from_host(kj, cj, ej, K_MAIN, dev)
+    bl, wb = timed(lambda: bub.call_bubbles(gj, haploid_cols=[1],
+                                            devices=two))
+    bfile = os.path.join(tmp, "call_bub_two.txt.gz")
+    callfile.write_bubble_file(bfile, bl, K_MAIN, hj.ncols, 300, 1000,
+                               sample_names=[gi.sample_name
+                                             for gi in hj.ginfo])
+    import gzip
+    if gzip.open(bfile).read() != gzip.open(
+            os.path.join(tmp, "call_bub.txt.gz")).read():
+        fail("4i: call_bubbles over [cuda:0] * 2 differs from 4g's bubbles")
+    print(f"4i: call_bubbles of the joined graph over [cuda:0] * 2 in "
+          f"{wb:.3f}s: the same {len(bl)} bubbles as 4g's one-device file")
+    del gj
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= 2:
+        multi_card_cli(tmp)
+    else:
+        print("4i: the multi-card CLI (--devices 2) was not run: this host "
+              "has one card")
+    print(f"4i: phase wall {time.perf_counter() - t_phase:.1f}s")
+    return dict(launched, lookup=lookups)
+
+
+def multi_card_cli(tmp):
+    """build, contigs, thread --no-gap-fill and bubbles through the CLI
+    with --devices 2 (two cards) against one card: the same bytes (a
+    .ctp less its recorded command line, the date fixed)."""
+    cln = os.path.join(tmp, "clean.ctx")
+    cmds = {"build": ["build", "-k", str(K_MAIN), "--sample", "ecoli",
+                      "--seq", os.path.join(tmp, "reads.fq"), "OUT"],
+            "contigs": ["contigs", "-N", "512", "-o", "OUT", cln],
+            "thread": ["thread", "--no-gap-fill", "--seq",
+                       os.path.join(tmp, "reads_gap.fq"), "-o", "OUT", cln],
+            "bubbles": ["bubbles", "-H", "1", "-o", "OUT",
+                        os.path.join(tmp, "call_joint.ctx")]}
+    strftime = time.strftime
+    time.strftime = lambda fmt, *a: "2026-01-01 00:00:00"   # .ctp dates
+    try:
+        walls = {name: multi_card_run(tmp, name, argv)
+                 for name, argv in cmds.items()}
+    finally:
+        time.strftime = strftime
+    for name, (one, two) in walls.items():
+        print(f"4i: mctx-torch {name} --devices 2 on two cards: the "
+              f"one-card bytes; wall {two:.3f}s (one card {one:.3f}s)")
+
+
+def multi_card_run(tmp, name, argv) -> tuple:
+    """One command on one card and with --devices 2: the same bytes.
+    Returns the two walls."""
+    import gzip
+    got = []
+    for extra in ([], ["--devices", "2"]):
+        out = os.path.join(tmp, f"multi_{name}.out")
+        if os.path.exists(out):
+            os.remove(out)
+        t0 = time.perf_counter()
+        run_cli([out if a == "OUT" else a for a in argv] + extra
+                + ["--device", "cuda"])
+        wall = time.perf_counter() - t0
+        data = open(out, "rb").read()
+        if data[:2] == b"\x1f\x8b":
+            data = gzip.decompress(data).replace(b" --devices 2", b"")
+        got.append((data, wall))
+    if got[0][0] != got[1][0]:
+        fail(f"4i: {name} --devices 2 differs from one card's output")
+    return got[0][1], got[1][1]
+
+
+def phase_rest_cpu_card(tmp):
+    """5h: on phase 5's cleaned 200 kb graph, on the card and on the CPU:
+    `server -C -E` and `server --disk` replies, `exp_abc` counts and -P
+    output with 5d's links, and build_sharded over a 2 x 2 grid against
+    the flat build of phase 5's reads; equal on both."""
+    from mccortex_tpu_torch.graph import build as gbuild
+    from mccortex_tpu_torch.io import ctx as ctxio
+    from mccortex_tpu_torch.io import seqio
+    from mccortex_tpu_torch.parallel import shard as psh
+    import torch
+
+    t_phase = time.perf_counter()
+    cln = os.path.join(tmp, "cuda_c.ctx")
+    srt = os.path.join(tmp, "five_sorted.ctx")
+    run_cli(["sort", "-o", srt, cln, "--device", "cpu"])
+    run_cli(["index", srt, "--device", "cpu"])
+    _h, keys, covg, edges = ctxio.read_ctx(cln)
+    lines, canon = server_queries(keys, K_MAIN, 2000, seed=14)
+    for argv in (["server", "-C", "-E", cln], ["server", "--disk", srt]):
+        got = {dev: serve(argv + ["--device", dev], lines)
+               for dev in ("cuda", "cpu")}
+        if got["cuda"][0] != got["cpu"][0]:
+            fail(f"5h: {' '.join(argv[:2])}: the card's replies differ from "
+                 f"the CPU's")
+        nfound = check_replies(got["cuda"][0], lines, canon, keys, covg,
+                               edges, "5h " + argv[1])
+        print(f"5h: mctx-torch {' '.join(argv[:-1])}: {len(lines)} replies "
+              f"({nfound} found), CUDA == CPU == numpy; "
+              f"{got['cuda'][1]:.3f}s on the card, {got['cpu'][1]:.3f}s "
+              f"on the CPU")
+    _f, text, status, wcard, wcpu, _l = same_on_both(
+        "exp_abc", ["exp_abc", "-N", "32", "-M", "50", "-P", "-p",
+                    os.path.join(tmp, "l5_default.ctp.gz"), cln],
+        need=())
+    counts = re.findall(r"(RES_\w+): (\d+) / 32", status)
+    if len(counts) != 5 or sum(int(c) for _n, c in counts) != 32:
+        fail(f"5h: exp_abc counts {counts} do not sum to 32")
+    print(f"5h: mctx-torch exp_abc -N 32 -M 50 -P -p: {dict(counts)}, "
+          f"CUDA == CPU; {wcard:.3f}s on the card, {wcpu:.3f}s on the CPU")
+    batches = [(c, colour) for colour, fq in enumerate(("c0.fq", "c1.fq"))
+               for c, _q, _col in list(seqio.read_batches_native(
+                   [os.path.join(tmp, fq)], overlap=K_MAIN))[
+                       :N_GRID_BATCHES]]
+    # the grid against the flat build on the card, the card's grid
+    # against the CPU's
+    stores, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        d = torch.device(dev, 0) if dev == "cuda" else torch.device(dev)
+        t0 = time.perf_counter()
+        stores[dev] = psh.build_sharded(batches, K_MAIN, 2, [[d] * 2] * 2)
+        walls[dev] = time.perf_counter() - t0
+    same_store(stores["cuda"], gbuild.build(batches, K_MAIN, 2,
+                                            stores["cuda"].device),
+               "5h: build_sharded on a 2 x 2 grid against the flat build")
+    same_store(stores["cuda"], stores["cpu"], "5h: build_sharded CUDA/CPU")
+    print(f"5h: build_sharded of {len(batches)} batches on a 2 x 2 grid: "
+          f"{stores['cuda'].n} kmers, the flat build's, CUDA == CPU; "
+          f"{walls['cuda']:.3f}s on the card, {walls['cpu']:.3f}s on the CPU")
+    print(f"5h: phase wall {time.perf_counter() - t_phase:.1f}s")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "mccortex_tpu_torch")):
         fail("mccortex_tpu_torch/ is not beside this script: run it from "
@@ -3328,23 +3779,35 @@ def main():
         elapsed("4g")
         del genome
         torch.cuda.empty_cache()
+        # 4h. server (in memory, --disk, -p), hashtest, exp_abc
+        lookups_4h = phase_rest_cli(torch, tmp, card)
+        elapsed("4h")
+        # 4i. the multi-device paths on [cuda:0] * N
+        sharded = phase_sharding(torch, tmp, card, raw)
+        elapsed("4i")
+        torch.cuda.empty_cache()
         # 5. CUDA and CPU outputs byte for byte (5f: the calling commands)
         phase_byte_identity(torch, tmp)
         # 5g. the pipeline once on the card
         phase_pipeline(tmp, card)
         elapsed("5g")
+        # 5h. server, exp_abc and a 2 x 2 sharded build, CUDA == CPU
+        phase_rest_cpu_card(tmp)
+        elapsed("5h")
 
     # launches on the main path: the build's kernels from the E. coli build
     # under the default engine, the sort kernels from the build under the
     # engine that runs them, the lookup kernel from clean + unitigs, from
     # contigs + inferedges + subgraph, from thread + check -p +
-    # contigs -p, from thread -2, links, correct, reads and coverage and
-    # from bubbles, breakpoints, vcfcov and popbubbles
+    # contigs -p, from thread -2, links, correct, reads and coverage,
+    # from bubbles, breakpoints, vcfcov and popbubbles, from server and
+    # from the sharded lookups (the sharded build's launches stand beside
+    # the main build's as launches_sharded)
     launches = {"frontend": by_engine["lax"]["frontend"],
                 "segreduce": by_engine["lax"]["segreduce"],
                 "mergepath": by_engine["lax"]["mergepath"],
                 "lookup": (lookups + lookups_4d + lookups_4e + lookups_4f
-                           + lookups_4g),
+                           + lookups_4g + lookups_4h + sharded["lookup"]),
                 "mergelevel": by_engine["mp"]["mergelevel"],
                 "bitonic_blocksort": by_engine["mp"]["bitonic_blocksort"],
                 "bitonic_tail": by_engine["bitonic"]["bitonic_tail"],
@@ -3367,7 +3830,11 @@ def main():
                              launches_graph_walks=lookups_4d,
                              launches_links=lookups_4e,
                              launches_reads_correct=lookups_4f,
-                             launches_calling=lookups_4g)
+                             launches_calling=lookups_4g,
+                             launches_server=lookups_4h,
+                             launches_sharded=sharded["lookup"])
+    for name in ("frontend", "segreduce", "mergepath"):
+        results[name].update(launches_sharded=sharded[name])
     results["segreduce"].update(launches_epoch=lax["frontend"],
                                 launches_merge=lax["segreduce"]
                                 - lax["frontend"])

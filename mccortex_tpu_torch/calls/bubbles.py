@@ -14,8 +14,10 @@ All (fork, branch, colour) walks run as one batched linked walk a colour
 on the store's device (links/walk.walk_linked over the adjacency, whose
 lookups are the lookup kernel on the card); convergence and grouping run
 per fork on the host over the recorded vertex paths, as in the JAX
-package, in the same order.  The JAX package's `mesh` branch (walkers
-sharded over devices) is not ported: --devices above 1 is refused.
+package, in the same order.  With a list of devices (the JAX package's
+`mesh`), each colour's walkers are split over them, each device holding
+a replica of the graph and the links, and the walked states are joined
+in walker order.
 """
 
 from __future__ import annotations
@@ -71,10 +73,13 @@ def _next_rows(g: gstore.DBGraph, okm: torch.Tensor, n: int):
     return sops.lookup(g.keys, key2)
 
 
-def _branch_walks(g, links, fork_verts, max_allele, ncols):
+def _branch_walks(g, links, fork_verts, max_allele, ncols, devices=None):
     """Launch walks for every (fork, branch, colour).  Returns
     (meta (B, 3) = fork index, branch nucleotide, colour; [(walker
-    indices, walked state)] one a colour; B), or [] with no walker."""
+    indices, walked state)] one a colour; B), or [] with no walker.
+    devices: each colour's walkers split into contiguous chunks over
+    these devices (replicas of the graph and links), the states joined
+    on the graph's device in walker order."""
     F = len(fork_verts)
     C = ncols
     dev = g.device
@@ -118,19 +123,38 @@ def _branch_walks(g, links, fork_verts, max_allele, ncols):
         torch.from_numpy(meta[:, 2].astype(np.int64)).to(dev))
     # one walk per colour, so that the walk colour is one value
     out = []
-    adj = adjmod.get_adjacency(g)  # one row gather per step, not log2(N)
-    hopinfo = lwalk.get_hopinfo(g, links)
     for c in range(C):
         sel = np.nonzero(meta[:, 2] == c)[0]
         if len(sel) == 0:
             continue
-        sub = _take_walkers(st, sel)
-        sub = lwalk.walk_linked(g, links, sub, c, max_steps=max_allele,
-                                ctpcol=min(c, links.nseen.shape[1] - 1),
-                                adj=adj, hopinfo=hopinfo)
+        sub = _walk_split(g, links, _take_walkers(st, sel), c, max_allele,
+                          devices or [dev])
         lwalk.report_drops(sub, "bubbles")
         out.append((sel, sub))
     return meta, out, B
+
+
+def _walk_split(g, links, st, c, max_allele, devices):
+    """One colour's linked walk, its walkers split into contiguous chunks
+    over `devices`, each walked on a replica of the graph and links;
+    the states joined on the graph's device."""
+    from ..parallel import shard as psh
+    parts = []
+    for d, (s0, s1) in zip(devices, psh.chunks(st.cur_link.shape[0],
+                                                len(devices))):
+        if s1 <= s0:
+            continue
+        with psh.on(d):
+            gd, ld = psh.replica(g, d), psh.replica(links, d)
+            sub = psh.to_device(_take_walkers(st, np.arange(s0, s1)), d)
+            parts.append(lwalk.walk_linked(
+                gd, ld, sub, c, max_steps=max_allele,
+                ctpcol=min(c, links.nseen.shape[1] - 1),
+                adj=adjmod.get_adjacency(gd),    # one gather a step
+                hopinfo=lwalk.get_hopinfo(gd, ld)))
+    if len(parts) == 1:
+        return psh.to_device(parts[0], g.device)
+    return psh.concat(parts, g.device, shared=("used",))
 
 
 def _take_walkers(st: lwalk.LinkedWalkState, sel) -> lwalk.LinkedWalkState:
@@ -216,7 +240,8 @@ def unitig_chain(g, start_vertex, succ, max_len):
 
 def call_bubbles(g: gstore.DBGraph, links: lstore.LinkStore | None = None,
                  max_allele: int = 300, max_flank: int = 1000,
-                 haploid_cols=(), remove_serial: bool = True):
+                 haploid_cols=(), remove_serial: bool = True,
+                 devices=None):
     """Find all bubbles.  Returns list[Bubble].
 
     Matches the reference's per-shared-unitig enumeration
@@ -232,7 +257,7 @@ def call_bubbles(g: gstore.DBGraph, links: lstore.LinkStore | None = None,
     fork_verts = find_fork_vertices(g)
     if len(fork_verts) == 0:
         return []
-    res = _branch_walks(g, links, fork_verts, max_allele, ncols)
+    res = _branch_walks(g, links, fork_verts, max_allele, ncols, devices)
     if not res:
         return []
     meta, walks, B = res

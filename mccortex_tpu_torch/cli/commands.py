@@ -1,7 +1,9 @@
 """mctx-torch subcommands (counterpart of mccortex_tpu/cli/commands.py):
-build (all of `mctx build` on one device), view, check (with -p),
-clean, unitigs, inferedges, contigs (linkless and linked), pview,
-thread (single-end and paired) and bubbles.  The commands of
+build (all of `mctx build`; --devices N: parallel/shard.py), view,
+check (with -p), clean, unitigs, inferedges, contigs (linkless and
+linked), pview, thread (single-end and paired) and bubbles.  contigs,
+thread --no-gap-fill and bubbles split their walkers or read batches
+over --devices.  The commands of
 mccortex_tpu/cli/commands2.py and commands3.py are in commands2.py and
 commands3.py.
 """
@@ -18,9 +20,6 @@ import torch
 from ..utils import timing
 from .common import (add_common, apply_common, check_kmer, devices_arg,
                      nkmers_hint)
-
-def _not_ported(p, flag: str):
-    p.error(f"{flag} is not yet ported to mctx-torch (use mctx)")
 
 
 def cmd_build(argv):
@@ -61,8 +60,6 @@ def cmd_build(argv):
                         "an embedded reference need none)")
     p.add_argument("-t", "--threads", type=int, default=None,
                    help="accepted for parity")
-    p.add_argument("--devices", default=None,
-                   help="devices to run on; more than 1 is not yet ported")
     p.add_argument("-o", "--out", dest="out_explicit", default=None)
     p.add_argument("out", nargs="?", default=None)
     add_common(p, memory=True, nkmers=True)
@@ -77,9 +74,8 @@ def cmd_build(argv):
     if args.keep_pcr and args.remove_pcr:
         p.error("--keep-pcr conflicts with --remove-pcr")
     k = check_kmer(args.kmer, p)
-    if devices_arg(args) > 1:
-        _not_ported(p, "--devices above 1")
     status, device = apply_common(args, out)
+    devices = devices_arg(args)
 
     from ..constants import nwords
     from ..graph import build as gbuild
@@ -197,10 +193,18 @@ def cmd_build(argv):
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
     t0 = time.perf_counter()
-    g = gbuild.build(batches, k, ncols=ncols, device=device,
-                     capacity=nkmers_hint(args))
+    if len(devices) > 1:
+        from ..parallel import shard as psh
+        status(f"sharded build over {len(devices)} devices "
+               f"(kmer-space hash partition)")
+        g = psh.build_sharded(batches, k, ncols, devices,
+                              capacity_hint=nkmers_hint(args))
+    else:
+        g = gbuild.build(batches, k, ncols=ncols, device=device,
+                         capacity=nkmers_hint(args))
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        for d in set(devices):
+            torch.cuda.synchronize(d)
     status(f"built {g.n} kmers from {len(batches)} batches in "
            f"{time.perf_counter() - t0:.3f}s on {where} "
            f"(sort engine {gbuild.SORT_IMPL})")
@@ -620,19 +624,20 @@ def cmd_contigs(argv):
                    action="store_false", default=True,
                    help="disable the missing-link-information halt "
                         "(ref contigs default: check enabled)")
-    p.add_argument("--devices", default=None,
-                   help="devices to run on; more than 1 is not yet ported")
     p.add_argument("ctx")
     add_common(p)
     args = p.parse_args(argv)
-    if devices_arg(args) > 1:
-        _not_ported(p, "--devices above 1")
     status, device = apply_common(args, args.out, args.confid_csv)
+    devices = devices_arg(args)
     timing.SPANS.clear()
     from ..graph import traverse as T
     from ..utils.stats import contig_stats
     h, g = _load_graphs([args.ctx], device)
     n = g.n
+    if len(devices) > 1:
+        # graph replicated on every device, each seed batch split over
+        # them (linkless path; the linked walk runs on the first)
+        status(f"contigs: walkers sharded over {len(devices)} devices")
 
     links = None
     if args.paths:
@@ -702,7 +707,8 @@ def cmd_contigs(argv):
                 used_links |= extra["used"]
         else:
             contigs, stats = T.assemble_linkless_contigs(
-                g, seeds, colour=args.colour, max_len=args.max_len)
+                g, seeds, colour=args.colour, max_len=args.max_len,
+                devices=devices)
         for i, c in enumerate(contigs):
             if args.ncontigs > 0 and ncontig >= args.ncontigs:
                 break
@@ -894,13 +900,9 @@ def cmd_thread(argv):
                    help="debug: dump the built links as text")
     p.add_argument("-z", "--print-reads", action="store_true",
                    help="debug: print each read as threaded")
-    p.add_argument("--devices", default=None,
-                   help="devices to run on; more than 1 is not yet ported")
     p.add_argument("ctx")
     add_common(p)
     args = p.parse_args(_expand_pe_colon(argv))
-    if devices_arg(args) > 1:
-        _not_ported(p, "--devices above 1")
     status, device = apply_common(args, args.out, args.gap_hist,
                                   args.frag_hist)
     if not args.seq and not args.seq2 and not args.seqi:
@@ -935,6 +937,12 @@ def cmd_thread(argv):
     prev = ctpio.load_link_store(args.paths, g) if args.paths else None
     if args.zero_paths and prev is not None:
         prev = dataclasses.replace(prev, nseen=torch.zeros_like(prev.nseen))
+    devices = devices_arg(args)
+    if len(devices) > 1:
+        status("thread: --devices applies to --no-gap-fill threading; "
+               "gap-fill runs single-device" if args.gap_fill else
+               f"thread: read batches sharded over {len(devices)} "
+               "devices (store replicated)")
     with timing.span("thread", device):
         if args.gap_fill:
             links = lthread.thread_reads_gapfill(
@@ -944,7 +952,8 @@ def cmd_thread(argv):
                 max_context=args.max_context, end_check=args.end_check,
                 use_new_paths=args.use_new_paths, aln_stats=aln_stats)
         elif batches:
-            links = lthread.thread_reads(g, batches, ncols, stats=stats)
+            links = lthread.thread_reads(g, batches, ncols, stats=stats,
+                                         devices=devices)
         else:
             links = None
     if args.print_contigs:
@@ -1056,13 +1065,9 @@ def cmd_bubbles(argv):
                    action="store_true",
                    help="keep serial (chained) bubbles "
                         "(ref ctx_bubbles.c -S; higher FP)")
-    p.add_argument("--devices", default=None,
-                   help="devices to run on; more than 1 is not yet ported")
     p.add_argument("ctx", nargs="+")
     add_common(p)
     args = p.parse_args(argv)
-    if devices_arg(args) > 1:
-        _not_ported(p, "--devices above 1")
     status, device = apply_common(args, args.out)
     timing.SPANS.clear()
     from ..calls import bubbles as bub
@@ -1075,10 +1080,14 @@ def cmd_bubbles(argv):
             links = ctpio.load_link_store(args.paths, g)
     haploid = (list(range(h.ncols)) if args.haploid.strip() == "*"
                else [int(x) for x in args.haploid.split(",") if x != ""])
+    devices = devices_arg(args)
+    if len(devices) > 1:
+        status(f"bubbles: walkers sharded over {len(devices)} devices")
     with timing.span("call", device):
         bl = bub.call_bubbles(g, links, max_allele=args.max_allele,
                               max_flank=args.max_flank, haploid_cols=haploid,
-                              remove_serial=not args.keep_serial)
+                              remove_serial=not args.keep_serial,
+                              devices=devices)
     with timing.span("write"):
         callfile.write_bubble_file(
             args.out, bl, g.k, h.ncols, args.max_allele, args.max_flank,

@@ -1,6 +1,6 @@
 """mctx-torch subcommands of mccortex_tpu/cli/commands2.py: subgraph,
 join, pjoin, dist, sort, index, uniqkmers, rmsubstr, reads, coverage,
-popbubbles.
+popbubbles, server and exp_abc.
 join rebuilds its store on the device (graph/store.from_records: the
 sort and segreduce kernels on the card) and intersects through the
 batched lookup;
@@ -10,7 +10,9 @@ adjacency; dist and sort run on the device; pjoin merges link files
 code; reads and coverage map reads to node paths through the batched
 lookup (links/thread.reads_to_node_paths), one lookup per padded read
 length; popbubbles calls the bubbles of calls/bubbles.py and prunes one
-branch of each on the device.
+branch of each on the device; server answers kmer queries through the
+batched lookup (or, with --disk, the .ctx file's block index); exp_abc
+runs two batched linked walks.
 """
 
 from __future__ import annotations
@@ -23,10 +25,10 @@ import sys
 import numpy as np
 import torch
 
-from .commands import (_load_graph, _load_graphs, _not_ported, _save_graph,
+from .commands import (_load_graph, _load_graphs, _save_graph,
                        intersect_store)
 from .common import (add_common, apply_common, check_kmer, check_outfile,
-                     devices_arg, parse_size)
+                     parse_size)
 
 
 # ---------------------------------------------------------------------------
@@ -559,13 +561,9 @@ def cmd_reads(argv):
                    help="keep reads/pairs with NO kmer in graph")
     p.add_argument("-t", "--threads", type=int, default=None,
                    help="accepted for parity")
-    p.add_argument("--devices", default=None,
-                   help="devices to run on; more than 1 is not yet ported")
     p.add_argument("ctx")
     add_common(p, memory=True, nkmers=True)
     args = p.parse_args(argv)
-    if devices_arg(args) > 1:
-        _not_ported(p, "--devices above 1")
     status, device = apply_common(args)
     from ..io import seqio
     from ..utils import timing
@@ -678,13 +676,9 @@ def cmd_coverage(argv):
     p.add_argument("-o", "--out", default="-")
     p.add_argument("-t", "--threads", type=int, default=None,
                    help="accepted for parity")
-    p.add_argument("--devices", default=None,
-                   help="devices to run on; more than 1 is not yet ported")
     p.add_argument("ctx", nargs="+")
     add_common(p, memory=True, nkmers=True)
     args = p.parse_args(argv)
-    if devices_arg(args) > 1:
-        _not_ported(p, "--devices above 1")
     status, device = apply_common(args, args.out)
     from ..io import seqio
     from ..utils import timing
@@ -784,4 +778,253 @@ def cmd_popbubbles(argv):
     status(f"popped {npopped} bubbles: {int(g.n)} -> {int(g2.n)} kmers")
     _save_graph(args.out, h, g2)
     status(f"time split: {timing.summary()}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# server (ref ctx_server.c): JSON kmer queries on stdin, replies on stdout
+# ---------------------------------------------------------------------------
+
+def cmd_server(argv):
+    """One JSON line a query line: 'info', 'random' (in memory) or a kmer.
+    In memory, a kmer is looked up through ops/hashidx.lookup (on a
+    card the lookup kernel; its table is built once, at start); with
+    --disk, through the .ctx file's block index (io/ctx.DiskGraphReader,
+    host numpy)."""
+    p = argparse.ArgumentParser(prog="mctx-torch server")
+    p.add_argument("-p", "--paths", action="append", default=[],
+                   help="link files: replies list the kmer's links "
+                        "(ref ctx_server.c:194)")
+    p.add_argument("-D", "--disk", action="store_true",
+                   help="serve from the sorted .ctx on disk through its "
+                        ".idx block index (ref ctx_server.c --disk)")
+    p.add_argument("-S", "--single-line", action="store_true",
+                   help="replies on a single line (always; accepted for "
+                        "parity)")
+    p.add_argument("-C", "--coverages", action="store_true",
+                   help="include per-colour coverages (always included; "
+                        "accepted for parity)")
+    p.add_argument("-E", "--edges", action="store_true",
+                   help="include per-sample edges (always included; "
+                        "accepted for parity)")
+    p.add_argument("ctx")
+    add_common(p, memory=True, nkmers=True)
+    args = p.parse_args(argv)
+    status, device = apply_common(args)
+    if args.disk and args.paths:
+        p.error("--disk serves the graph only (links need in-memory row "
+                "resolution); drop -p or --disk")
+    from ..io import ctx as ctxio
+    if args.disk:
+        with ctxio.DiskGraphReader(args.ctx) as dg:
+            status(f"server ready (k={dg.h.kmer_size}, {dg.n} kmers, DISK "
+                   "mode); enter kmer or 'info'; ctrl-D to quit")
+            _serve(dg.h.kmer_size, dg.n, dg.h.ncols, None,
+                   lambda key: _disk_reply(dg, key))
+        return 0
+    h, g = _load_graph(args.ctx, device)
+    mem = _MemoryServer(g, args.paths)
+    status(f"server ready (k={g.k}, {g.n} kmers); enter kmer, 'info', or "
+           "'random'; ctrl-D to quit")
+    _serve(g.k, g.n, h.ncols, mem.random_kmer, mem.reply)
+    return 0
+
+
+_BASE_DIGIT = str.maketrans("ACGTacgt", "01230123")
+_COMP_DIGIT = str.maketrans("ACGTacgt", "32103210")
+
+
+def _canonical_key(q: str, W: int) -> np.ndarray:
+    """The canonical key ((W,) uint64, word 0 most significant) of a
+    kmer string of ACGT: the smaller of the kmer and its reverse
+    complement read as base-4 numbers, which is their lexicographic
+    order (utils/npkmer.seq_canonical_keys for one kmer)."""
+    v = min(int(q.translate(_BASE_DIGIT), 4),
+            int(q[::-1].translate(_COMP_DIGIT), 4))
+    return np.array([(v >> (64 * (W - 1 - w))) & 0xFFFFFFFFFFFFFFFF
+                     for w in range(W)], np.uint64)
+
+
+def _serve(k, n_kmers, ncols, random_kmer, reply):
+    """The query loop: `reply(key)` answers a canonical key ((W,)
+    uint64) with the reply's fields after "key", or None when absent;
+    `random_kmer` gives a kmer of the graph (None: 'random' is not a
+    command, as with --disk)."""
+    import json
+    from ..constants import nwords
+    W = nwords(k)
+    for line in sys.stdin:
+        q = line.strip()
+        if not q:
+            continue
+        if q == "info":
+            print(json.dumps({"kmer_size": k, "num_kmers": n_kmers,
+                              "ncols": ncols}))
+            continue
+        if q == "random" and random_kmer is not None:
+            q = random_kmer()
+        if len(q) != k or any(c not in "ACGTacgt" for c in q):
+            print(json.dumps({"error": f"expected {k}bp kmer"}))
+            continue
+        fields = reply(_canonical_key(q, W))
+        if fields is None:
+            print(json.dumps({"key": q, "find": False}))
+        else:
+            print(json.dumps({"key": q, "find": True, **fields}))
+        sys.stdout.flush()
+
+
+def _disk_reply(dg, key):
+    from ..utils.text import edges_to_strings
+    hit = dg.lookup(key)
+    if hit is None:
+        return None
+    _row, cv, ed = hit
+    return {"colours": [int(c) for c in cv],
+            "edges": edges_to_strings(ed[None, :])[0]}
+
+
+class _MemoryServer:
+    """The in-memory graph of `server`: host copies of its coverage and
+    edges, the lookup table built once, and the links of -p."""
+
+    def __init__(self, g, link_paths):
+        from ..ops import hashidx
+        from ..ops import sorted as sops
+        self.g = g
+        self.covg = g.covg.cpu().numpy().view(np.uint32)
+        self.edges = g.edges.cpu().numpy()
+        hashidx.lookup(g.keys, sops.sentinel((1,), g.W, g.device))
+        self.links = None
+        if link_paths:
+            from ..io import ctp as ctpio
+            links = ctpio.load_link_store(link_paths, g)
+            self.links = (links.offsets.cpu().numpy(), links.seq.cpu(),
+                          links.nj.cpu().numpy(),
+                          links.nseen.cpu().numpy().view(np.uint32))
+
+    def random_kmer(self) -> str:
+        from ..utils.text import kmers_to_strings
+        row = random.randrange(self.g.n)
+        return kmers_to_strings(
+            self.g.keys[row:row + 1].cpu().numpy().view(np.uint64),
+            self.g.k)[0]
+
+    def reply(self, key):
+        from ..ops import hashidx
+        from ..utils.text import edges_to_strings
+        q = torch.from_numpy(key.view(np.int64)[None]).to(self.g.device)
+        row, found = hashidx.lookup(self.g.keys, q)
+        r, hit = torch.stack([row.long(), found.long()]).tolist()
+        if not hit[0]:
+            return None
+        r = r[0]
+        # union edges -> left/right base lists (ref kmer_response:
+        # ctx_server.c:93-106, both uppercased)
+        ue = np.bitwise_or.reduce(self.edges[r]).astype(np.uint8)
+        ustr = edges_to_strings(np.array([[ue]]))[0][0]
+        out = {"colours": [int(c) for c in self.covg[r]],
+               "left": "".join(c for c in ustr[:4] if c != ".").upper(),
+               "right": "".join(c for c in ustr[4:] if c != "."),
+               "edges": edges_to_strings(self.edges[r][None, :])[0]}
+        if self.links is not None:
+            out["links"] = self._links_of(r)
+        return out
+
+    def _links_of(self, row):
+        from ..links import store as lstore
+        off, seq, nj, nseen = self.links
+        out = []
+        for o in (0, 1):
+            v = 2 * row + o
+            for lid in range(int(off[v]), int(off[v + 1])):
+                n = int(nj[lid])
+                bases = lstore.unpack_junc(seq[[lid] * n], torch.arange(n))
+                out.append({"forward": o == 0,
+                            "juncs": "".join("ACGT"[b] for b in
+                                             bases.tolist()),
+                            "colours": [int(x) for x in nseen[lid]]})
+        return out
+
+
+# ---------------------------------------------------------------------------
+# exp_abc (hidden; ref ctx_exp_abc.c): traversal-consistency experiment
+# ---------------------------------------------------------------------------
+
+def cmd_exp_abc(argv):
+    """How often `if A->B and A->B->C then B->C` holds (ref
+    ctx_exp_abc.c:14-20): walk from a random node A, take B mid-path and
+    C at the end, walk again from B and compare with the A-walk's
+    suffix.  The result classes are the reference's RES_* (:52).  Both
+    walks are one batched linked walk (links/walk.walk_linked)."""
+    p = argparse.ArgumentParser(prog="mctx-torch exp_abc")
+    p.add_argument("-p", "--paths", action="append", default=[])
+    p.add_argument("-N", "--repeat", type=int, default=2000)
+    p.add_argument("-M", "--max-AB-dist", type=int, dest="maxab",
+                   default=1000)
+    p.add_argument("-P", "--print", dest="print_failed",
+                   action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("ctx")
+    add_common(p)
+    args = p.parse_args(argv)
+    status, device = apply_common(args)
+    from ..links import store as lstore
+    from ..links import walk as lwalk
+    from ..utils.text import kmers_to_strings
+    h, g = _load_graph(args.ctx, device)
+    links = lstore.empty(g.capacity, g.ncols, device=device)
+    if args.paths:
+        from ..io import ctp as ctpio
+        links = ctpio.load_link_store(args.paths, g)
+    rng = np.random.default_rng(args.seed)
+    N = args.repeat
+    rows = rng.integers(0, int(g.n), N).astype(np.int32)
+    orients = rng.integers(0, 2, N).astype(np.uint8)
+    cap = min(2 * args.maxab + 2, 4096)
+
+    def walk(r, o):
+        st = lwalk.linked_init(g, links, torch.from_numpy(r).to(device),
+                               torch.from_numpy(o).to(device), cap)
+        st = lwalk.walk_linked(g, links, st, 0, max_steps=cap)
+        lwalk.report_drops(st, "exp_abc")
+        return st.base.out_vert.cpu().numpy(), st.base.out_len.cpu().numpy()
+
+    pv, pl_ = walk(rows, orients)
+    res = {"RES_ABC_SUCCESS": 0, "RES_BC_WRONG": 0,
+           "RES_BC_OVERSHOT": 0, "RES_NO_TRAVERSAL": 0,
+           "RES_AB_FAILED": 0}
+    # B at the midpoint of each A-walk
+    bsel = []
+    for i in range(N):
+        if pl_[i] < 2:
+            res["RES_AB_FAILED"] += 1
+            continue
+        bsel.append((i, min(args.maxab, int(pl_[i]) // 2)))
+    if bsel:
+        bv = np.array([pv[i, m - 1] for i, m in bsel])
+        qv, ql = walk((bv >> 1).astype(np.int32), (bv & 1).astype(np.uint8))
+        keys_np = None
+        for j, (i, mid) in enumerate(bsel):
+            want = pv[i, mid:pl_[i]]
+            got = qv[j, :ql[j]]
+            nw_ = len(want)
+            if ql[j] == 0 and nw_ > 0:
+                res["RES_NO_TRAVERSAL"] += 1
+            elif len(got) >= nw_ and (got[:nw_] == want).all():
+                if len(got) > nw_:
+                    res["RES_BC_OVERSHOT"] += 1
+                else:
+                    res["RES_ABC_SUCCESS"] += 1
+            else:
+                res["RES_BC_WRONG"] += 1
+                if args.print_failed:
+                    if keys_np is None:
+                        keys_np = g.keys.cpu().numpy().view(np.uint64)
+                    krow = pv[i, mid - 1] >> 1
+                    ks = kmers_to_strings(keys_np[krow:krow + 1], g.k)[0]
+                    print(f">failed_B_{i}\n{ks}")
+    total = max(N, 1)
+    for name, cnt in res.items():
+        status(f"{name}: {cnt} / {N} ({100.0 * cnt / total:.2f}%)")
     return 0

@@ -1,5 +1,5 @@
 """mctx-torch subcommands of mccortex_tpu/cli/commands3.py: correct,
-links, breakpoints, calls2vcf, vcfcov and vcfgeno.
+links, breakpoints, calls2vcf, vcfcov, vcfgeno and hashtest.
 
 correct bridges the gaps of each read (of each mate pair, across the
 insert) through the graph with align/correct.py, the reads mapped to
@@ -9,7 +9,8 @@ inspects the junction trees on the host (links/link_tree.py).
 breakpoints walks the non-reference branches of the graph
 (calls/breakpoints.py); calls2vcf and vcfgeno are host code on a call
 file or a VCF; vcfcov looks the haplotypes' kmers up in the graph
-(calls/genotyping.py, the lookup kernel on the card).
+(calls/genotyping.py, the lookup kernel on the card); hashtest times
+one build epoch and a binary-search lookup on the device.
 """
 
 from __future__ import annotations
@@ -20,12 +21,12 @@ import gzip
 import json
 
 import numpy as np
+import torch
 
 from ..align import nw
 from ..utils import timing
-from .commands import (_load_graphs, _mask_reads, _not_ported,
-                       _without_device)
-from .common import add_common, apply_common, check_outfile, devices_arg
+from .commands import _load_graphs, _mask_reads, _without_device
+from .common import add_common, apply_common, check_outfile
 
 
 # ---------------------------------------------------------------------------
@@ -95,13 +96,9 @@ def cmd_correct(argv):
                    help="gap tolerance coefficient")
     p.add_argument("-t", "--threads", type=int, default=None,
                    help="accepted for parity")
-    p.add_argument("--devices", default=None,
-                   help="devices to run on; more than 1 is not yet ported")
     p.add_argument("ctx")
     add_common(p, memory=True, nkmers=True)
     args = p.parse_args(argv)
-    if devices_arg(args) > 1:
-        _not_ported(p, "--devices above 1")
     status, device = apply_common(args, args.gap_hist, args.frag_hist,
                                   args.contig_hist)
     if not args.seq and not args.seq2 and not args.seqi:
@@ -305,14 +302,10 @@ def cmd_links(argv):
     p.add_argument("-L", "--limit", type=int, default=0,
                    help="only use links from first N kmers (row order)")
     p.add_argument("-o", "--out", default=None)
-    p.add_argument("--devices", default=None,
-                   help="devices to run on; more than 1 is not yet ported")
     p.add_argument("ctx")
     p.add_argument("ctp")
     add_common(p, memory=True, nkmers=True)
     args = p.parse_args(argv)
-    if devices_arg(args) > 1:
-        _not_ported(p, "--devices above 1")
     status, device = apply_common(args, args.out, args.list_csv, args.plot,
                                   args.threshold, args.covg_hist)
     from ..io import ctp as ctpio
@@ -427,13 +420,9 @@ def cmd_breakpoints(argv):
                         "the reference.  Here the reference is a graph "
                         "colour supplied by the user, so its edges are "
                         "whatever the graph holds; accepted for parity")
-    p.add_argument("--devices", default=None,
-                   help="devices to run on; more than 1 is not yet ported")
     p.add_argument("ctx", nargs="+")
     add_common(p)
     args = p.parse_args(argv)
-    if devices_arg(args) > 1:
-        _not_ported(p, "--devices above 1")
     status, device = apply_common(args, args.out)
     timing.SPANS.clear()
     from .. import __version__
@@ -785,4 +774,47 @@ def cmd_vcfgeno(argv):
                                    rm_cov=args.rm_cov)
     vcfio.write_variants(args.out, vcf, fmt=args.out_fmt)
     status(f"genotyped {ndone} records ({nskip} skipped)")
+    return 0
+
+
+def cmd_hashtest(argv):
+    """Hidden micro-benchmark (role of ref ctx_exp_hashtest.c): the kmer
+    store's insert (one build epoch, graph/build.count_batch: the
+    front-end, sort and segreduce kernels on a card) and lookup
+    (ops/sorted.lookup, a binary search) rates on the device."""
+    p = argparse.ArgumentParser(prog="mctx-torch hashtest")
+    p.add_argument("-n", "--num", type=int, default=1 << 20,
+                   help="number of kmers")
+    p.add_argument("-k", "--kmer", type=int, default=31)
+    add_common(p)
+    args = p.parse_args(argv)
+    status, device = apply_common(args)
+    import time
+    from ..graph import build as gbuild
+    from ..ops import sorted as sops
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    rng = np.random.default_rng(0)
+    L = 256
+    B = max(args.num // (L - args.kmer + 1), 1)
+    bases = rng.integers(0, 4, size=(B, L), dtype=np.uint8)
+    t0 = time.perf_counter()
+    keys, _covg, _edges, nu = gbuild.count_batch(
+        torch.from_numpy(bases).to(device), args.kmer, 1, 0)
+    sync()
+    t_ins = time.perf_counter() - t0
+    nk = B * (L - args.kmer + 1)
+    q = keys[torch.from_numpy(rng.integers(0, max(nu, 1), args.num)
+                              ).to(device)]
+    t0 = time.perf_counter()
+    sops.lookup(keys, q)
+    sync()
+    t_lk = time.perf_counter() - t0
+    status(f"insert: {nk} kmers ({nu} unique) in {t_ins:.3f}s "
+           f"({nk / t_ins / 1e6:.1f}M/s)")
+    status(f"lookup: {args.num} queries in {t_lk:.3f}s "
+           f"({args.num / t_lk / 1e6:.1f}M/s)")
     return 0

@@ -6,7 +6,11 @@ mccortex_tpu/cli/common.py).
 - --memory is a budget for the store, checked by utils/membudget;
 - --nkmers is a hint of the store's capacity (the store grows exactly);
 - --threads is accepted for parity (the device work is parallel anyway);
-- --devices above 1 is not ported yet;
+- --devices N runs on N devices (parallel/shard.py): on cuda the cards
+  cuda:0 .. cuda:N-1 ('auto' = every visible card), on cpu N shards of
+  the CPU device.  build, contigs, thread --no-gap-fill and bubbles
+  split their work over them; the other commands accept the flag and
+  run on one device, as mctx's do;
 - --device picks where the kernels run: cuda (default) or cpu (the plain
   PyTorch versions).  cuda without a CUDA device is an error, never a
   silent fall back to the CPU.
@@ -51,15 +55,27 @@ def nkmers_hint(args) -> int | None:
     return parse_size(getattr(args, "nkmers", None))
 
 
-def devices_arg(args) -> int:
-    """Resolve --devices to a device count; only 1 is ported."""
+def devices_arg(args) -> list:
+    """Resolve --devices to a list of torch.devices on --device: cuda:0
+    .. cuda:N-1 ('auto' = every visible card), or N shards of the CPU
+    ('auto' = one)."""
     v = getattr(args, "devices", None)
+    dev = torch.device(args.device)
     if v is None:
-        return 1
-    n = torch.cuda.device_count() if str(v).lower() == "auto" else int(v)
+        return [dev]
+    auto = str(v).lower() == "auto"
+    if dev.type == "cuda":
+        avail = torch.cuda.device_count()
+        n = avail if auto else int(v)
+    else:
+        n = 1 if auto else int(v)
     if n < 1:
         raise ValueError("--devices must be >= 1")
-    return n
+    if dev.type != "cuda":
+        return [dev] * n
+    if n > avail:
+        raise ValueError(f"--devices {n} > {avail} visible devices")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def add_common(p, memory: bool = False, nkmers: bool = False):
@@ -76,6 +92,10 @@ def add_common(p, memory: bool = False, nkmers: bool = False):
         g.add_argument("-n", "--nkmers", default=None,
                        help="initial kmer-store capacity hint, e.g. 20M "
                             "(the store grows exactly as needed)")
+    g.add_argument("--devices", default=None,
+                   help="devices to run on: a count, or 'auto' for every "
+                        "visible card (N shards of the CPU with --device "
+                        "cpu)")
     g.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="run the kernels on the CUDA device (default) or "
                         "their plain PyTorch versions on the CPU")

@@ -54,7 +54,13 @@ def _commands() -> dict:
             "vcfgeno": (commands3.cmd_vcfgeno,
                         "genotype VCF from kmer coverage"),
             "pipeline": (pipeline.cmd_pipeline,
-                         "run the full multi-sample workflow")}
+                         "run the full multi-sample workflow"),
+            "server": (commands2.cmd_server,
+                       "interactive kmer query server"),
+            "exp_abc": (commands2.cmd_exp_abc,
+                        "traversal consistency experiment (hidden)"),
+            "hashtest": (commands3.cmd_hashtest,
+                         "kmer store micro-benchmark")}
 
 
 def main(argv=None):
@@ -67,8 +73,7 @@ def main(argv=None):
         return 0
     cmd = argv[0]
     if cmd not in commands:
-        print(f"mctx-torch: unknown command '{cmd}' (ported so far: "
-              f"{', '.join(commands)})", file=sys.stderr)
+        print(f"mctx-torch: unknown command '{cmd}'", file=sys.stderr)
         return 1
     try:
         return commands[cmd][0](argv[1:]) or 0

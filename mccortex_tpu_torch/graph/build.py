@@ -271,58 +271,96 @@ def merge_sorted_fused(ak, ac, ae, bk, bc, be, sort_impl: str | None = None,
             planes[2 * W + C:].T.to(torch.uint8).contiguous(), n)
 
 
+class RecordFold:
+    """Binary-counter LSM of sorted record items on one device: an item's
+    level is the sum of the capacities merged into it, and two items of
+    one level are merged (and compacted) until the levels on the stack
+    all differ.  `build` folds its epochs with it; parallel/shard.py
+    folds what each shard receives."""
+
+    def __init__(self, W: int, C: int):
+        self.W, self.C = W, C
+        self._stack = []   # [(level, planes, n live)], levels decreasing
+
+    def push(self, item: torch.Tensor, n: int) -> None:
+        """Fold one item: (2W + 2C, m) record planes, its n unique
+        records sorted at the front and sentinels after.  It is cut to
+        _capacity(n, m) records."""
+        item = item[:, :_capacity(n, item.shape[1])]
+        level = item.shape[1]
+        while self._stack and self._stack[-1][0] == level:
+            other_level, other, _ = self._stack.pop()
+            merged, n = _merge(other, item, self.W, self.C)
+            item = merged[:, :_capacity(n, merged.shape[1])].contiguous()
+            level += other_level
+        self._stack.append((level, item, n))
+
+    def result(self):
+        """(planes, n) of everything pushed, merged into one sorted item,
+        or None when nothing was pushed."""
+        if not self._stack:
+            return None
+        _, item, n = self._stack.pop()
+        while self._stack:
+            _, other, _ = self._stack.pop()
+            item, n = _merge(other, item, self.W, self.C)
+        return item, n
+
+
+def colour_item(planes: torch.Tensor, n: int, W: int, C: int,
+                colour: int) -> torch.Tensor:
+    """An epoch's output (planes of 2W keys, count and edge byte; n
+    unique records) as record planes of C colours, the count and edges
+    in `colour`, cut to _capacity(n, M) records."""
+    cap = _capacity(n, planes.shape[1])
+    item = torch.zeros((2 * W + 2 * C, cap), dtype=torch.int32,
+                       device=planes.device)
+    item[:2 * W] = planes[:2 * W, :cap]
+    item[2 * W + colour] = planes[2 * W, :cap]
+    item[2 * W + C + colour] = planes[2 * W + 1, :cap]
+    return item
+
+
+def store_of_planes(planes: torch.Tensor, n: int, k: int,
+                    capacity: int | None = None) -> gstore.DBGraph:
+    """A store from sorted unique record planes (n live records first),
+    padded with sentinels to `capacity` when that is larger than n."""
+    W = nwords(k)
+    C = (planes.shape[0] - 2 * W) // 2
+    g = gstore.DBGraph(
+        keys=kops.from_planes(planes[:2 * W, :n]),
+        covg=planes[2 * W:2 * W + C, :n].T.contiguous(),
+        edges=planes[2 * W + C:, :n].T.to(torch.uint8).contiguous(),
+        n=n, k=k)
+    if capacity and capacity > n:
+        pad = gstore.empty(k, capacity - n, C, planes.device)
+        g = gstore.DBGraph(keys=torch.cat([g.keys, pad.keys]),
+                           covg=torch.cat([g.covg, pad.covg]),
+                           edges=torch.cat([g.edges, pad.edges]), n=n, k=k)
+    return g
+
+
 def build(reads_batches, k: int, ncols: int = 1,
           device: str | torch.device = "cuda",
           capacity: int | None = None) -> gstore.DBGraph:
     """Build a graph from an iterable of (bases (B, L) uint8, colour).
 
     Each batch is copied to `device` and aggregated there by one epoch,
-    then folded into a binary-counter LSM: an item's level is the sum of
-    the epoch capacities merged into it, and two items of one level are
-    merged (and compacted) until the levels on the stack all differ.
-    `capacity` is a hint of the store's size in kmers: the store is
-    padded to it when it holds fewer and grows past it when it holds
-    more.
+    then folded into a binary-counter LSM (RecordFold).  `capacity` is a
+    hint of the store's size in kmers: the store is padded to it when it
+    holds fewer and grows past it when it holds more.
     """
     device = torch.device(device)
     W = nwords(k)
-    C = ncols
-    stack = []   # [(level, planes, n live)], levels strictly decreasing
-
+    fold = RecordFold(W, ncols)
     for bases, colour in reads_batches:
         bt = torch.as_tensor(bases, dtype=torch.uint8).to(device)
         planes, n = _epoch(bt, k)
-        cap = _capacity(n, planes.shape[1])
-        item = torch.zeros((2 * W + 2 * C, cap), dtype=torch.int32,
-                           device=device)
-        item[:2 * W] = planes[:2 * W, :cap]
-        item[2 * W + colour] = planes[2 * W, :cap]
-        item[2 * W + C + colour] = planes[2 * W + 1, :cap]
-        level = cap
-        while stack and stack[-1][0] == level:
-            other_level, other, _ = stack.pop()
-            merged, n = _merge(other, item, W, C)
-            item = merged[:, :_capacity(n, merged.shape[1])].contiguous()
-            level += other_level
-        stack.append((level, item, n))
-
-    if not stack:
+        fold.push(colour_item(planes, n, W, ncols, colour), n)
+    res = fold.result()
+    if res is None:
         return gstore.empty(k, capacity or 0, ncols, device)
-    _, item, n = stack.pop()
-    while stack:
-        _, other, _ = stack.pop()
-        item, n = _merge(other, item, W, C)
-    g = gstore.DBGraph(
-        keys=kops.from_planes(item[:2 * W, :n]),
-        covg=item[2 * W:2 * W + C, :n].T.contiguous(),
-        edges=item[2 * W + C:, :n].T.to(torch.uint8).contiguous(),
-        n=n, k=k)
-    if capacity and capacity > n:
-        pad = gstore.empty(k, capacity - n, ncols, device)
-        g = gstore.DBGraph(keys=torch.cat([g.keys, pad.keys]),
-                           covg=torch.cat([g.covg, pad.covg]),
-                           edges=torch.cat([g.edges, pad.edges]), n=n, k=k)
-    return g
+    return store_of_planes(*res, k, capacity)
 
 
 class PcrDupFilter:

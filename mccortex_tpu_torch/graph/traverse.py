@@ -568,15 +568,33 @@ def _seed_strings(g: gstore.DBGraph, seed_rows: np.ndarray) -> list:
 
 def assemble_linkless_contigs(g: gstore.DBGraph, seed_rows: np.ndarray,
                               colour: int | None = 0,
-                              max_len: int = 4096):
+                              max_len: int = 4096, devices=None):
     """A contig for each seed row by unitig hops: walk right from (seed,
     FORWARD) and left from (seed, REVERSE), join (ref
     assemble_contigs.c:88-119 without links/confidence).  Returns
-    (contigs: list[str], stop_status: (B, 2) right/left halt codes)."""
+    (contigs: list[str], stop_status: (B, 2) right/left halt codes).
+
+    devices: a list of devices for the data-parallel mode (the JAX
+    package's walk_dp mesh): a replica of the graph on each device, with
+    its own unitig view, adjacency and lookup table; the seeds split into
+    contiguous chunks, each walked on its device; the contigs joined in
+    seed order."""
     from . import unitigs as U
     B = len(seed_rows)
     if B == 0:
         return [], np.zeros((0, 2), np.int32)
+    if devices is not None and len(devices) > 1:
+        from ..parallel import shard as psh
+        contigs, stats = [], []
+        for dev, (s0, s1) in zip(devices, psh.chunks(B, len(devices))):
+            if s1 > s0:
+                with psh.on(dev):
+                    c, st = assemble_linkless_contigs(
+                        psh.replica(g, dev), seed_rows[s0:s1], colour,
+                        max_len)
+                contigs += c
+                stats.append(st)
+        return contigs, np.concatenate(stats)
     seed_rows = np.asarray(seed_rows, np.int64)
     seeds = torch.from_numpy(seed_rows).to(g.device, torch.int32)
     adj = adjmod.get_adjacency(g)

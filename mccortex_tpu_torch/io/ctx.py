@@ -24,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 import gzip
 import io as _io
+import os
 import struct
 from typing import BinaryIO
 
@@ -184,3 +185,92 @@ def read_ctx(path: str):
     return (h, rec["kmer"].astype(np.uint64).reshape(-1, W),
             rec["covg"].astype(np.uint32).reshape(-1, C),
             rec["edges"].astype(np.uint8).reshape(-1, C))
+
+
+class DiskGraphReader:
+    """Kmer lookup on a SORTED uncompressed .ctx file on disk, through the
+    `.idx` block index that `index` writes (ref src/graph/graph_search.h
+    disk binary search; ctx_server.c --disk).  Without an index file,
+    every 4096th record starts a block.  Memory is one key a block; a
+    query reads one block of records and binary-searches it.  Host numpy,
+    copied from mccortex_tpu/io/ctx.py (the block keys' sortable form is
+    made once here, not at every query)."""
+
+    def __init__(self, path: str, idx_path: str | None = None,
+                 block_kmers: int = 4096):
+        self.fh = open(path, "rb")
+        try:
+            self._open(path, idx_path or (path + ".idx"), block_kmers,
+                       os.path.getsize(path))
+        except BaseException:
+            self.fh.close()
+            raise
+
+    def _open(self, path, idx_path, block_kmers, size):
+        self.h = read_header(self.fh)
+        self.data_off = self.fh.tell()
+        W, C = self.h.W, self.h.ncols
+        self.rec_dt = np.dtype([("kmer", "<u8", (W,)),
+                                ("covg", "<u4", (C,)),
+                                ("edges", "u1", (C,))])
+        if (size - self.data_off) % self.rec_dt.itemsize:
+            raise ValueError(f"{path}: truncated .ctx")
+        self.n = (size - self.data_off) // self.rec_dt.itemsize
+        starts, keys = [], []
+        if os.path.exists(idx_path):
+            from ..utils import npkmer as npk
+            with open(idx_path) as fh:
+                for line in fh:
+                    if line.startswith("#") or not line.strip():
+                        continue
+                    kstr, index, _nk = line.split("\t")
+                    kk, _, _ = npk.seq_canonical_keys(kstr.strip(),
+                                                      self.h.kmer_size)
+                    starts.append(int(index))
+                    keys.append(kk[0])
+        else:
+            for s in range(0, self.n, block_kmers):
+                self.fh.seek(self.data_off + s * self.rec_dt.itemsize)
+                rec = np.frombuffer(
+                    self.fh.read(self.rec_dt.itemsize), self.rec_dt)
+                starts.append(s)
+                keys.append(rec["kmer"][0].astype(np.uint64))
+        self.block_starts = np.array(starts, np.int64)
+        if keys:
+            self.block_keys = np.stack(keys).astype(np.uint64)
+        else:
+            self.block_keys = np.zeros((0, W), np.uint64)
+        from ..calls.calls2vcf import _key_void
+        self._block_void = _key_void(self.block_keys)
+
+    def lookup(self, key: np.ndarray):
+        """key: (W,) uint64 canonical.  Returns (row, covg, edges) or
+        None."""
+        from ..calls.calls2vcf import _key_void
+        if self.n == 0:
+            return None
+        qv = _key_void(key[None])[0]
+        b = int(np.searchsorted(self._block_void, qv, side="right")) - 1
+        if b < 0:
+            return None
+        s = int(self.block_starts[b])
+        e = int(self.block_starts[b + 1]) if b + 1 < len(
+            self.block_starts) else self.n
+        self.fh.seek(self.data_off + s * self.rec_dt.itemsize)
+        recs = np.frombuffer(
+            self.fh.read((e - s) * self.rec_dt.itemsize), self.rec_dt)
+        kv = _key_void(recs["kmer"].astype(np.uint64))
+        i = int(np.searchsorted(kv, qv))
+        if i >= len(kv) or kv[i] != qv:
+            return None
+        return (s + i, recs["covg"][i].astype(np.uint32),
+                recs["edges"][i].astype(np.uint8))
+
+    def close(self):
+        self.fh.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -229,19 +229,30 @@ def _emit_run(fw_pos, fw_base, fw_att, rv_pos, nuc_rv, rv_att,
 
 
 def thread_reads(g: gstore.DBGraph, read_batches, ncols: int,
-                 edge_colour: int = 0, stats=None) -> lstore.LinkStore:
+                 edge_colour: int = 0, stats=None,
+                 devices=None) -> lstore.LinkStore:
     """Thread read batches [(bases (B, P) uint8, colour)] through the
     graph and build the deduplicated link store on g's device (ref
     generate_paths.c:499 without gap filling: reads split at missing or
-    unclean kmers)."""
+    unclean kmers).
+
+    devices: a list of devices for data-parallel threading (the JAX
+    package's _thread_reads_dp): a replica of the store on each, batch i
+    threaded on device i mod N, the records collected in batch order, so
+    the store is the one-device store."""
+    from ..parallel import shard as psh
+    devices = devices or [g.device]
     all_recs = []
-    for bases, colour in read_batches:
-        with span("paths", g.device):
-            idx, orient, valid = reads_to_node_paths(g, bases, g.k)
-        if stats is not None:
-            _record_valid_runs(stats, colour, valid.cpu().numpy(), g.k)
-        recs = thread_contigs(g, idx, orient, valid, None, colour,
-                              edge_colour)
+    for i, (bases, colour) in enumerate(read_batches):
+        dev = devices[i % len(devices)]
+        with psh.on(dev):
+            gd = psh.replica(g, dev)
+            with span("paths", dev):
+                idx, orient, valid = reads_to_node_paths(gd, bases, g.k)
+            if stats is not None:
+                _record_valid_runs(stats, colour, valid.cpu().numpy(), g.k)
+            recs = thread_contigs(gd, idx, orient, valid, None, colour,
+                                  edge_colour)
         if len(recs[0]):
             all_recs.append(recs)
     if not all_recs:

@@ -160,6 +160,8 @@ def lookup_planar(table: torch.Tensor, queries: torch.Tensor, b_bits: int,
 
 _cache_store: dict = {}
 _cache32: dict = {}
+CACHE_ENTRIES = 8   # tables kept, the oldest dropped first: enough for
+                    # the shards of a sharded lookup beside their store
 
 
 def _live_host_keys(keys: torch.Tensor) -> np.ndarray:
@@ -177,8 +179,8 @@ def _cached(cache: dict, keys: torch.Tensor, build):
     with span("table", keys.device):
         table, b_bits = build(_live_host_keys(keys))
         table_t = torch.from_numpy(table.view(np.int32)).to(keys.device)
-    if len(cache) > 4:
-        cache.clear()
+    while len(cache) >= CACHE_ENTRIES:
+        cache.pop(next(iter(cache)))
     cache[ck] = (keys, table_t, b_bits)
     return table_t, b_bits
 

@@ -240,23 +240,28 @@ def test_cli_multicolour_masked_build_matches_mctx(tmp_path, monkeypatch, k):
         assert covg[:, 0].sum() > 0
 
 
-# `check -p` and paired-end threading are ported (tests/test_torch_
-# {links_cli,correct}.py); more than one device is still refused, also
-# by the commands ported last
-@pytest.mark.parametrize("flag", [["correct", "--devices", "2", "--seq",
-                                   "reads.fq", "-o", "fixed.fa"],
-                                  ["build", "--devices", "2"]])
-def test_cli_rejects_flags_not_ported(tmp_path, flag, capsys):
-    fa, _ = _write_inputs(tmp_path)
-    out = str(tmp_path / "o.ctx")
+# --devices 2 on the CPU: build shards the kmer space over two CPU
+# devices (parallel/shard.py), correct runs on one device as mctx's does;
+# either writes the one-device bytes
+@pytest.mark.parametrize("cmd", ["build", "correct"])
+def test_cli_devices_2_writes_the_one_device_bytes(tmp_path, cmd, capsys):
+    fa, fq = _write_inputs(tmp_path)
+    ctx = str(tmp_path / "o.ctx")
     assert port_main(["build", "-k", "21", "--sample", "s", "--seq", fa,
-                      "--device", "cpu", "-q", out]) == 0
-    args = ["--sample", "s", "--seq", fa, "-k", "21", str(tmp_path / "p.ctx")] \
-        if flag[0] == "build" else [out]
-    with pytest.raises(SystemExit) as e:
-        port_main(flag + args + ["--device", "cpu"])
-    assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+                      "--seq", fq, "--device", "cpu", "-q", ctx]) == 0
+    outs = []
+    for tag, extra in (("one", []), ("two", ["--devices", "2"])):
+        out = str(tmp_path / f"{tag}.out")
+        args = (["build", "-k", "21", "--sample", "s", "--seq", fa, "--seq",
+                 fq, out] if cmd == "build" else
+                ["correct", "--seq", fq, "-o", out, ctx])
+        capsys.readouterr()
+        assert port_main(args + extra + ["--device", "cpu"]) == 0
+        err = capsys.readouterr().err
+        outs.append(open(out, "rb").read())
+    assert outs[0] == outs[1] and len(outs[0]) > 1000
+    if cmd == "build":
+        assert "sharded build over 2 devices" in err
 
 
 def test_cli_device_cuda_needs_a_card(tmp_path, capsys):

@@ -187,18 +187,27 @@ def test_contigs_matches_mctx(files, capsys, case):
         assert "HitMaxLen" in _lines(et, "[mctx] contigs halt")[0]
 
 
-# -p and -P are ported (link-guided contigs, held against mctx by
-# tests/test_torch_links_cli.py); --devices above 1 stays refused with or
-# without them
-@pytest.mark.parametrize("flags", [["-p", "links.ctp", "--devices", "2"],
-                                   ["-P", "--devices", "2"],
-                                   ["--devices", "2"]])
-def test_contigs_refuses_what_is_not_ported(files, capsys, flags):
-    capsys.readouterr()
-    with pytest.raises(SystemExit) as e:
-        _port(["contigs"] + flags + [files["ab"]])
-    assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+# --devices 2 on the CPU: the linkless walkers split over two replicas
+# of the graph, the linked walk (-p) on one device, as in mctx; either way
+# the one-device FASTA
+@pytest.mark.parametrize("flags", [["-p", "LINKS"], ["-P"], []])
+def test_contigs_devices_2_writes_the_one_device_fasta(files, capsys, flags):
+    links = str(files["d"] / "devices_links.ctp.gz")
+    if not (files["d"] / "devices_links.ctp.gz").exists():
+        assert _port(["thread", "-q", "--seq", files["b.fa"], "-o", links,
+                      files["ab"]]) == 0
+    case = "".join(f.strip("-") for f in flags) or "linkless"
+    flags = [links if f == "LINKS" else f for f in flags]
+    outs = []
+    for tag, extra in (("one", []), ("two", ["--devices", "2"])):
+        out = str(files["d"] / f"contigs_devices_{case}_{tag}.fa")
+        capsys.readouterr()
+        assert _port(["contigs", "--batch", "8", "-o", out] + flags + extra
+                     + [files["ab"]]) == 0
+        err = capsys.readouterr().err
+        outs.append(open(out).read())
+    assert outs[0] == outs[1] and outs[0].count(">contig") > 1
+    assert "contigs: walkers sharded over 2 devices" in err
 
 
 def test_contigs_confid_without_links_fails_as_mctx(files, capsys):

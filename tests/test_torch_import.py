@@ -21,7 +21,7 @@ for n in ("links.thread", "links.walk", "links.check", "align.correct",
           "links.link_tree", "cli.commands3", "calls.bubbles",
           "calls.pop_bubbles", "calls.breakpoints", "calls.genotyping",
           "calls.calls2vcf", "calls.vcfgeno", "io.callfile", "io.vcf",
-          "io.bcf", "align.nw", "cli.pipeline"):
+          "io.bcf", "align.nw", "cli.pipeline", "parallel.shard"):
     assert pkg.__name__ + "." + n in names, n
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "triton"))
@@ -41,7 +41,7 @@ def test_every_module_imports_without_jax(tmp_path):
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 67      # ... incl. calls.*, io.{callfile,vcf,bcf}
+    assert n_modules >= 69      # ... incl. calls.*, io.*, parallel.shard
 
 
 def _sources(exts):
@@ -55,6 +55,7 @@ def _sources(exts):
     r"^\s*(import|from)\s+jax\b",
     r"^\s*(import|from)\s+mccortex_tpu(\.|\s|$)",
     r"torch\.compile\b",
+    r"not yet ported",
 ])
 def test_python_sources_avoid(pattern):
     rx = re.compile(pattern, re.M)

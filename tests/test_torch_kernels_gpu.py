@@ -999,3 +999,33 @@ def test_calling_command_on_card_matches_cpu(cuda, calling_inputs,
     assert all(len(v) for v in got["cpu"][0].values())
     assert (got["cuda"][2].get("lookup", 0) > 0) == lookup
     assert not got["cpu"][2]
+
+
+@pytest.mark.parametrize("grid", [False, True])
+def test_build_sharded_on_card_matches_one_device(cuda, grid):
+    """build_sharded over [cuda:0] * 4 (or a 2 x 2 grid of it) writes the
+    one-device store; each shard runs the front-end, segreduce and
+    merge-path kernels; lookup_sharded answers as hashidx.lookup."""
+    from mccortex_tpu_torch.parallel import shard as psh
+    rng = np.random.default_rng(12)
+    genome = rng.integers(0, 4, 30000).astype(np.uint8)
+    batches = []
+    for i in range(12):
+        st = rng.integers(0, len(genome) - 150, 512)
+        batches.append((np.stack([genome[s:s + 150] for s in st]), i % 2))
+    dev = torch.device("cuda", 0)
+    devices = [[dev] * 2] * 2 if grid else [dev] * 4
+    want = tb.build(batches, 31, ncols=2, device=dev)
+    _build.LAUNCHES.clear()
+    shards = psh.build_shards(batches, 31, 2, devices)
+    got = psh.assemble(shards, dev)
+    assert all(_build.LAUNCHES[n] > 0 for n in ("frontend", "segreduce",
+                                                 "mergepath"))
+    for g, w in zip(tstore.to_host(got), tstore.to_host(want)):
+        np.testing.assert_array_equal(g, w)
+    q = torch.cat([want.keys, want.keys[:100] ^ 2])
+    covg, edges, found = psh.lookup_sharded(shards, q)
+    idx, fnd = hashidx.lookup(want.keys, q)
+    assert torch.equal(found, fnd) and int(fnd.sum()) >= want.n
+    assert torch.equal(covg[:want.n], want.covg)
+    assert torch.equal(edges[:want.n], want.edges)

@@ -1,7 +1,7 @@
 """`mctx-torch thread`, `contigs -p [-P -C -T]` and `check -p` against
 `mctx` on the CPU: the same .ctp text (decompressed, the date fixed, only
 the header's `generator` masked), the same FASTA and CSV bytes, the same
-status lines and exit codes.  Flags still refused exit 2.
+status lines and exit codes; with --devices 2 the one-device bytes.
 
 The data: a 1.4 kb genome holding a 50 bp repeat three times and a
 30 bp one twice, its error-free
@@ -242,17 +242,31 @@ def test_check_p_matches_mctx(capsys, data):
     assert len(want) == 1
 
 
-REFUSED = {
-    "thread_devices": ["thread", "--seq", "A", "--devices", "2", "-o",
-                       "o.ctp", "g.ctx"],
-    "contigs_devices": ["contigs", "-p", "l.ctp", "--devices", "2",
-                        "g.ctx"],
+DEVICES = {
+    # gap-filled threading runs on one device, as in mctx
+    "thread_devices": ["thread", "--seq", "FQ", "-o", "OUT"],
+    # the linked walk runs on one device, as in mctx
+    "contigs_devices": ["contigs", "-p", "PREV", "-s", "SEEDS",
+                        "--max-len", "2047", "-o", "OUT"],
 }
 
 
-@pytest.mark.parametrize("case", list(REFUSED))
-def test_refused_flags_exit_2(capsys, case):
-    with pytest.raises(SystemExit) as e:
-        port_main(REFUSED[case] + ["--device", "cpu"])
-    assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+@pytest.mark.parametrize("case", list(DEVICES))
+def test_devices_2_writes_the_one_device_bytes(capsys, data, case):
+    """--devices 2 on the CPU: the same .ctp text (less the recorded
+    flag) or FASTA bytes as the one-device run, to the same path."""
+    out = str(data["d"] / f"{case}.out")
+    subst = {"FQ": data["fq"], "OUT": out, "SEEDS": data["seeds"]}
+    if "PREV" in DEVICES[case]:
+        subst["PREV"] = _prev_links(capsys, data)
+    argv = [subst.get(a, a) for a in DEVICES[case]] + [data["ctx"]]
+    got = []
+    for extra in ([], ["--devices", "2"]):
+        capsys.readouterr()
+        assert port_main(argv + extra + ["--device", "cpu", "-f"]) == 0
+        err = capsys.readouterr().err
+        got.append(_text(out).replace(" --devices 2", "")
+                   if case == "thread_devices" else open(out).read())
+    assert got[0] == got[1] and len(got[0]) > 100
+    assert ("runs single-device" in err if case == "thread_devices"
+            else "walkers sharded over 2 devices" in err)
