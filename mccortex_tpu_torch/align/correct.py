@@ -237,99 +237,101 @@ def correct_batch(g: gstore.DBGraph, links: lstore.LinkStore | None,
     if aln_stats is None:
         aln_stats = CorrectAlnStats()
     bases = np.asarray(bases)
-    idx, orient, valid = lthread.reads_to_node_paths(g, bases, k)
-    idx = idx.cpu().numpy()
-    orient = orient.cpu().numpy()
-    valid = valid.cpu().numpy()
+    with span("align", dev):
+        idx, orient, valid = lthread.reads_to_node_paths(g, bases, k)
+        idx = idx.cpu().numpy()
+        orient = orient.cpu().numpy()
+        valid = valid.cpu().numpy()
     B, P = idx.shape
     sum_bases = (bases < 4).sum(axis=1)
 
-    # gaps: (read, left anchor pos, right anchor pos)
-    gaps = []
-    runs_by_read = []
-    for b in range(B):
-        v = valid[b]
-        starts = np.nonzero(v & ~np.concatenate([[False], v[:-1]]))[0]
-        ends = np.nonzero(v & ~np.concatenate([v[1:], [False]]))[0]
-        runs = list(zip(starts.tolist(), ends.tolist()))
-        runs_by_read.append(runs)
-        for ri in range(len(runs) - 1):
-            gaps.append((b, runs[ri][1], runs[ri + 1][0]))
-
     fills = {}
-    if gaps:
-        G = len(gaps)
-        gap_bounds = []
-        for b, l, r in gaps:
-            n = r - l - 1
-            is_ins = mate_col is not None and l < mate_col <= r
-            if is_ins:
-                ge = max(0, n - k)
-                wig = int(ge * gap_variance + gap_wiggle)
-                adj_min = frag_len_min - int(sum_bases[b]) + k - 1
-                adj_max = frag_len_max - int(sum_bases[b]) + k - 1
-                lo_l = ge - wig + adj_min
-                hi_l = ge + wig + adj_max
-                aln_stats.num_ins_gaps += 1
-            else:
-                ge = n
-                wig = int(ge * gap_variance + gap_wiggle)
-                lo_l = ge - wig
-                hi_l = ge + wig
-                aln_stats.num_mid_gaps += 1
-            gap_bounds.append((max(0, lo_l), max(0, hi_l), hi_l < 0,
-                               is_ins, ge))
-        # context priming (ref graph_walker_prime + traverse): each gap
-        # walker starts up to max_context aligned kmers BEFORE its anchor
-        # and takes forced steps along the read, picking up links on the
-        # way, so in-gap forks that upstream links resolve do not halt it
-        end_to_run = {}
-        start_to_run = {}
+    with span("gaps"):
+        # gaps: (read, left anchor pos, right anchor pos)
+        gaps = []
+        runs_by_read = []
         for b in range(B):
-            for (rs, re_) in runs_by_read[b]:
-                end_to_run[(b, re_)] = rs
-                start_to_run[(b, rs)] = re_
-        ctxs = []
-        for b, l, r in gaps:
-            cl = min(l - end_to_run[(b, l)], max_context)
-            cr = min(start_to_run[(b, r)] - r, max_context)
-            ctxs.append((cl, cr))
-        CTX = max(max(cl, cr) for cl, cr in ctxs)
+            v = valid[b]
+            starts = np.nonzero(v & ~np.concatenate([[False], v[:-1]]))[0]
+            ends = np.nonzero(v & ~np.concatenate([v[1:], [False]]))[0]
+            runs = list(zip(starts.tolist(), ends.tolist()))
+            runs_by_read.append(runs)
+            for ri in range(len(runs) - 1):
+                gaps.append((b, runs[ri][1], runs[ri + 1][0]))
+        if gaps:
+            G = len(gaps)
+            gap_bounds = []
+            for b, l, r in gaps:
+                n = r - l - 1
+                is_ins = mate_col is not None and l < mate_col <= r
+                if is_ins:
+                    ge = max(0, n - k)
+                    wig = int(ge * gap_variance + gap_wiggle)
+                    adj_min = frag_len_min - int(sum_bases[b]) + k - 1
+                    adj_max = frag_len_max - int(sum_bases[b]) + k - 1
+                    lo_l = ge - wig + adj_min
+                    hi_l = ge + wig + adj_max
+                    aln_stats.num_ins_gaps += 1
+                else:
+                    ge = n
+                    wig = int(ge * gap_variance + gap_wiggle)
+                    lo_l = ge - wig
+                    hi_l = ge + wig
+                    aln_stats.num_mid_gaps += 1
+                gap_bounds.append((max(0, lo_l), max(0, hi_l), hi_l < 0,
+                                   is_ins, ge))
+            # context priming (ref graph_walker_prime + traverse): each gap
+            # walker starts up to max_context aligned kmers BEFORE its anchor
+            # and takes forced steps along the read, picking up links on the
+            # way, so in-gap forks that upstream links resolve do not halt it
+            end_to_run = {}
+            start_to_run = {}
+            for b in range(B):
+                for (rs, re_) in runs_by_read[b]:
+                    end_to_run[(b, re_)] = rs
+                    start_to_run[(b, rs)] = re_
+            ctxs = []
+            for b, l, r in gaps:
+                cl = min(l - end_to_run[(b, l)], max_context)
+                cr = min(start_to_run[(b, r)] - r, max_context)
+                ctxs.append((cl, cr))
+            CTX = max(max(cl, cr) for cl, cr in ctxs)
 
-        def _last_bases(b, ps, flip):
-            rows = idx[b, ps].astype(np.int64)
-            ors = (orient[b, ps] ^ flip).astype(np.uint8)
-            return _verts_bases(g, rows * 2 + ors, k)
+            def _last_bases(b, ps, flip):
+                rows = idx[b, ps].astype(np.int64)
+                ors = (orient[b, ps] ^ flip).astype(np.uint8)
+                return _verts_bases(g, rows * 2 + ors, k)
 
-        forced = np.zeros((2 * G, max(CTX, 1)), np.uint8)
-        forced_n = np.zeros(2 * G, np.int32)
-        for gi, (b, l, r) in enumerate(gaps):
-            cl, cr = ctxs[gi]
-            if cl:
-                ps = np.arange(l - cl + 1, l + 1)
-                forced[gi, :cl] = _last_bases(b, ps, 0)
-                forced_n[gi] = cl
-            if cr:
-                ps = np.arange(r + cr - 1, r - 1, -1)
-                forced[G + gi, :cr] = _last_bases(b, ps, 1)
-                forced_n[G + gi] = cr
+            forced = np.zeros((2 * G, max(CTX, 1)), np.uint8)
+            forced_n = np.zeros(2 * G, np.int32)
+            for gi, (b, l, r) in enumerate(gaps):
+                cl, cr = ctxs[gi]
+                if cl:
+                    ps = np.arange(l - cl + 1, l + 1)
+                    forced[gi, :cl] = _last_bases(b, ps, 0)
+                    forced_n[gi] = cl
+                if cr:
+                    ps = np.arange(r + cr - 1, r - 1, -1)
+                    forced[G + gi, :cr] = _last_bases(b, ps, 1)
+                    forced_n[G + gi] = cr
 
-        # end-check margin: after bridging the walk continues freely;
-        # those post-anchor choices are compared with the read's aligned
-        # nodes (ref graph_walker_agrees_contig via use_end_check)
-        ec_win = 32 if end_check else 0
-        max_steps = int(min(max(hi for _, hi, _, _, _ in gap_bounds)
-                            + 2 + CTX, 4096 + CTX)) + ec_win
-        # two walkers a gap: [0:G) left-forward, [G:2G) right-backward
-        seed_rows = np.array(
-            [idx[b, l - ctxs[gi][0]] for gi, (b, l, _) in enumerate(gaps)]
-            + [idx[b, r + ctxs[gi][1]]
-               for gi, (b, _, r) in enumerate(gaps)], np.int32)
-        seed_or = np.array(
-            [orient[b, l - ctxs[gi][0]]
-             for gi, (b, l, _) in enumerate(gaps)]
-            + [orient[b, r + ctxs[gi][1]] ^ 1
-               for gi, (b, _, r) in enumerate(gaps)], np.uint8)
+            # end-check margin: after bridging the walk continues freely;
+            # those post-anchor choices are compared with the read's aligned
+            # nodes (ref graph_walker_agrees_contig via use_end_check)
+            ec_win = 32 if end_check else 0
+            max_steps = int(min(max(hi for _, hi, _, _, _ in gap_bounds)
+                                + 2 + CTX, 4096 + CTX)) + ec_win
+            # two walkers a gap: [0:G) left-forward, [G:2G) right-backward
+            seed_rows = np.array(
+                [idx[b, l - ctxs[gi][0]] for gi, (b, l, _) in enumerate(gaps)]
+                + [idx[b, r + ctxs[gi][1]]
+                   for gi, (b, _, r) in enumerate(gaps)], np.int32)
+            seed_or = np.array(
+                [orient[b, l - ctxs[gi][0]]
+                 for gi, (b, l, _) in enumerate(gaps)]
+                + [orient[b, r + ctxs[gi][1]] ^ 1
+                   for gi, (b, _, r) in enumerate(gaps)], np.uint8)
+    if gaps:
         adj = adjmod.get_adjacency(g)
         with span("walk", dev):
             st = lwalk.linked_init(g, links, torch.from_numpy(seed_rows),
@@ -340,134 +342,139 @@ def correct_batch(g: gstore.DBGraph, links: lstore.LinkStore | None,
                 adj=adj, forced=torch.from_numpy(forced).to(dev),
                 forced_n=torch.from_numpy(forced_n).to(dev))
         aln_stats.num_link_drops += lwalk.report_drops(st, "correct")
-        # only the columns any walker wrote cross to the host (lengths
-        # first, then the power-of-two bucket of columns that covers them)
-        wlens = st.base.out_len.cpu().numpy()
-        ml = int(wlens.max()) if wlens.size else 1
-        Wb = min(1 << max(ml, 1).bit_length(), st.base.out_vert.shape[1])
-        wverts = st.base.out_vert[:, :Wb].cpu().numpy()
-        for gi, (b, l, r) in enumerate(gaps):
-            lo, hi, dead, is_ins, gap_est = gap_bounds[gi]
-            if dead:
-                aln_stats.update(False)
-                continue
-            cl, cr = ctxs[gi]
-            l_anchor = int(idx[b, l]) * 2 + int(orient[b, l])
-            r_anchor = int(idx[b, r]) * 2 + int(orient[b, r])
-            Lw = wverts[gi, cl:int(wlens[gi])]
-            Rw = wverts[G + gi, cr:int(wlens[G + gi])]
-            fill_verts = None
-            act = 0
-
-            def _exp_fwd(d):
-                # the post-gap aligned nodes r+1..run end: the walker's
-                # continued free output must agree with them (ref
-                # graph_walker_agrees_contig; halting early = agree)
-                re_ = start_to_run[(b, r)]
-                tail = Lw[d + 1:].astype(np.int64)
-                ps = np.arange(r + 1, re_ + 1)
-                exp = idx[b, ps].astype(np.int64) * 2 + orient[b, ps]
-                n = min(len(tail), len(exp))
-                return bool((tail[:n] == exp[:n]).all())
-
-            def _exp_bwd(d):
-                rs = end_to_run[(b, l)]
-                tail = Rw[d + 1:].astype(np.int64)
-                ps = np.arange(l - 1, rs - 1, -1)
-                exp = (idx[b, ps].astype(np.int64) * 2
-                       + orient[b, ps]) ^ 1
-                n = min(len(tail), len(exp))
-                return bool((tail[:n] == exp[:n]).all())
-
-            if one_way:
-                # forward: the first re-acquisition of the right anchor
-                hit = np.nonzero(Lw[:hi + 1] == r_anchor)[0]
-                if hit.size:
-                    d = int(hit[0])
-                    if d < lo:
-                        aln_stats.update(False, too_short=True)
-                    elif end_check and not _exp_fwd(d):
-                        aln_stats.update(False, disagreed=True)
-                    else:
-                        fill_verts = Lw[:d].astype(np.int64)
-                        act = d
-                        aln_stats.update(True)
-                else:
+    with span("bridge"):
+        if gaps:
+            # only the columns any walker wrote cross to the host (lengths
+            # first, then the power-of-two bucket of columns that covers them)
+            wlens = st.base.out_len.cpu().numpy()
+            ml = int(wlens.max()) if wlens.size else 1
+            Wb = min(1 << max(ml, 1).bit_length(), st.base.out_vert.shape[1])
+            wverts = st.base.out_vert[:, :Wb].cpu().numpy()
+            for gi, (b, l, r) in enumerate(gaps):
+                lo, hi, dead, is_ins, gap_est = gap_bounds[gi]
+                if dead:
                     aln_stats.update(False)
-                if fill_verts is None:
-                    # backward: from the right anchor toward the left
-                    hit = np.nonzero(Rw[:hi + 1] == (l_anchor ^ 1))[0]
+                    continue
+                cl, cr = ctxs[gi]
+                l_anchor = int(idx[b, l]) * 2 + int(orient[b, l])
+                r_anchor = int(idx[b, r]) * 2 + int(orient[b, r])
+                Lw = wverts[gi, cl:int(wlens[gi])]
+                Rw = wverts[G + gi, cr:int(wlens[G + gi])]
+                fill_verts = None
+                act = 0
+
+                def _exp_fwd(d):
+                    # the post-gap aligned nodes r+1..run end: the walker's
+                    # continued free output must agree with them (ref
+                    # graph_walker_agrees_contig; halting early = agree)
+                    re_ = start_to_run[(b, r)]
+                    tail = Lw[d + 1:].astype(np.int64)
+                    ps = np.arange(r + 1, re_ + 1)
+                    exp = idx[b, ps].astype(np.int64) * 2 + orient[b, ps]
+                    n = min(len(tail), len(exp))
+                    return bool((tail[:n] == exp[:n]).all())
+
+                def _exp_bwd(d):
+                    rs = end_to_run[(b, l)]
+                    tail = Rw[d + 1:].astype(np.int64)
+                    ps = np.arange(l - 1, rs - 1, -1)
+                    exp = (idx[b, ps].astype(np.int64) * 2
+                           + orient[b, ps]) ^ 1
+                    n = min(len(tail), len(exp))
+                    return bool((tail[:n] == exp[:n]).all())
+
+                if one_way:
+                    # forward: the first re-acquisition of the right anchor
+                    hit = np.nonzero(Lw[:hi + 1] == r_anchor)[0]
                     if hit.size:
                         d = int(hit[0])
                         if d < lo:
                             aln_stats.update(False, too_short=True)
-                        elif end_check and not _exp_bwd(d):
+                        elif end_check and not _exp_fwd(d):
                             aln_stats.update(False, disagreed=True)
                         else:
-                            fill_verts = (Rw[:d].astype(np.int64)
-                                          ^ 1)[::-1]
+                            fill_verts = Lw[:d].astype(np.int64)
                             act = d
                             aln_stats.update(True)
                     else:
                         aln_stats.update(False)
-            else:
-                Lp = np.concatenate([[l_anchor], Lw.astype(np.int64)])
-                Rp = np.concatenate([[r_anchor ^ 1], Rw.astype(np.int64)])
-                trav, gap_len, a0, a1, p0, p1 = _two_way_meet(Lp, Rp, hi)
-                rejected = False
-                if trav and end_check:
-                    # ref traverse_two_way2 do_paths_check: each walker's
-                    # continued output must agree with the other side's
-                    # remaining path (and the rhs block for walker 0;
-                    # halting early = agree)
-                    re_ = start_to_run[(b, r)]
-                    ps = np.arange(r + 1, re_ + 1)
-                    post = (idx[b, ps].astype(np.int64) * 2
-                            + orient[b, ps])
-                    exp_f = np.concatenate(
-                        [(Rp[np.arange(p1 - 1, -1, -1)] ^ 1), post])
-                    tail_f = Lp[p0 + 1:]
-                    nf = min(len(tail_f), len(exp_f))
-                    rs = end_to_run[(b, l)]
-                    qs = np.arange(l - 1, rs - 1, -1)
-                    exp_b = np.concatenate(
-                        [(Lp[np.arange(p0 - 1, -1, -1)] ^ 1),
-                         (idx[b, qs].astype(np.int64) * 2
-                          + orient[b, qs]) ^ 1])
-                    tail_b = Rp[p1 + 1:]
-                    nb = min(len(tail_b), len(exp_b))
-                    rejected = not ((tail_f[:nf] == exp_f[:nf]).all()
-                                    and (tail_b[:nb] == exp_b[:nb]).all())
-                if rejected:
-                    aln_stats.update(False, disagreed=True)
-                elif trav and gap_len >= lo:
-                    fill_verts = np.concatenate(
-                        [Lp[1:1 + a0], (Rp[1:1 + a1] ^ 1)[::-1]])
-                    act = gap_len
-                    aln_stats.update(True)
+                    if fill_verts is None:
+                        # backward: from the right anchor toward the left
+                        hit = np.nonzero(Rw[:hi + 1] == (l_anchor ^ 1))[0]
+                        if hit.size:
+                            d = int(hit[0])
+                            if d < lo:
+                                aln_stats.update(False, too_short=True)
+                            elif end_check and not _exp_bwd(d):
+                                aln_stats.update(False, disagreed=True)
+                            else:
+                                fill_verts = (Rw[:d].astype(np.int64)
+                                              ^ 1)[::-1]
+                                act = d
+                                aln_stats.update(True)
+                        else:
+                            aln_stats.update(False)
                 else:
-                    aln_stats.update(False,
-                                     too_short=trav and gap_len < lo)
-            if fill_verts is not None:
-                if is_ins:
-                    aln_stats.num_ins_traversed += 1
-                    aln_stats.add_mp(act, int(sum_bases[b]), 0, k)
-                else:
-                    aln_stats.num_mid_traversed += 1
-                    aln_stats.add_gap(gap_est, act)
-                fills[(b, l)] = (fill_verts, _verts_bases(g, fill_verts, k))
+                    Lp = np.concatenate([[l_anchor], Lw.astype(np.int64)])
+                    Rp = np.concatenate([[r_anchor ^ 1], Rw.astype(np.int64)])
+                    trav, gap_len, a0, a1, p0, p1 = _two_way_meet(Lp, Rp, hi)
+                    rejected = False
+                    if trav and end_check:
+                        # ref traverse_two_way2 do_paths_check: each walker's
+                        # continued output must agree with the other side's
+                        # remaining path (and the rhs block for walker 0;
+                        # halting early = agree)
+                        re_ = start_to_run[(b, r)]
+                        ps = np.arange(r + 1, re_ + 1)
+                        post = (idx[b, ps].astype(np.int64) * 2
+                                + orient[b, ps])
+                        exp_f = np.concatenate(
+                            [(Rp[np.arange(p1 - 1, -1, -1)] ^ 1), post])
+                        tail_f = Lp[p0 + 1:]
+                        nf = min(len(tail_f), len(exp_f))
+                        rs = end_to_run[(b, l)]
+                        qs = np.arange(l - 1, rs - 1, -1)
+                        exp_b = np.concatenate(
+                            [(Lp[np.arange(p0 - 1, -1, -1)] ^ 1),
+                             (idx[b, qs].astype(np.int64) * 2
+                              + orient[b, qs]) ^ 1])
+                        tail_b = Rp[p1 + 1:]
+                        nb = min(len(tail_b), len(exp_b))
+                        rejected = not ((tail_f[:nf] == exp_f[:nf]).all()
+                                        and (tail_b[:nb] == exp_b[:nb]).all())
+                    if rejected:
+                        aln_stats.update(False, disagreed=True)
+                    elif trav and gap_len >= lo:
+                        fill_verts = np.concatenate(
+                            [Lp[1:1 + a0], (Rp[1:1 + a1] ^ 1)[::-1]])
+                        act = gap_len
+                        aln_stats.update(True)
+                    else:
+                        aln_stats.update(False,
+                                         too_short=trav and gap_len < lo)
+                if fill_verts is not None:
+                    if is_ins:
+                        aln_stats.num_ins_traversed += 1
+                        aln_stats.add_mp(act, int(sum_bases[b]), 0, k)
+                    else:
+                        aln_stats.num_mid_traversed += 1
+                        aln_stats.add_gap(gap_est, act)
+                    fills[(b, l)] = (fill_verts,
+                                     _verts_bases(g, fill_verts, k))
 
-    # splice a read at a time (the base extraction is vectorised; the
-    # per-read run bookkeeping is short)
-    okm_all = _oriented_np(_keys_host(g)[idx.reshape(-1)],
-                           orient.reshape(-1), k)
-    lastb = _BASE_CHARS[(okm_all[:, -1] & np.uint64(3)).astype(np.int64)
-                        ].reshape(B, P)
+        # splice a read at a time (the base extraction is vectorised; the
+        # per-read run bookkeeping is short)
+        okm_all = _oriented_np(_keys_host(g)[idx.reshape(-1)],
+                               orient.reshape(-1), k)
+        lastb = _BASE_CHARS[(okm_all[:, -1] & np.uint64(3)).astype(np.int64)
+                            ].reshape(B, P)
+        if not _return_parts:
+            out = [_splice_read(g, k, bases[b], runs_by_read[b], fills,
+                                idx, orient, lastb, okm_all, b, P,
+                                aln_stats) for b in range(B)]
     if _return_parts:
         return idx, orient, runs_by_read, fills, lastb, okm_all, P
-    return [_splice_read(g, k, bases[b], runs_by_read[b], fills, idx,
-                         orient, lastb, okm_all, b, P, aln_stats)
-            for b in range(B)]
+    return out
 
 
 def _splice_read(g, k, bases_row, runs, fills, idx, orient, lastb,

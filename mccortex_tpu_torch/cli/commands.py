@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 import numpy as np
 import torch
@@ -76,6 +75,7 @@ def cmd_build(argv):
     k = check_kmer(args.kmer, p)
     status, device = apply_common(args, out)
     devices = devices_arg(args)
+    timing.reset()
 
     from ..constants import nwords
     from ..graph import build as gbuild
@@ -106,78 +106,78 @@ def cmd_build(argv):
     pcr = gbuild.PcrDupFilter(k, device) if args.remove_pcr else None
     ndup = 0
     colour = 0
-    t0 = time.perf_counter()
-    for task in tasks:
-        if task[0] == "graph":
-            h2, k2, c2, e2 = ctxio.read_ctx(task[1])
-            if h2.kmer_size != k:
-                p.error(f"--graph {task[1]}: kmer size "
-                        f"{h2.kmer_size} != {k}")
-            gmerge.append((colour, k2, c2, e2))
-            ginfo.extend(h2.ginfo)
-            status(f"colour {colour}..{colour + h2.ncols - 1}: graph "
-                   f"{task[1]} ({len(k2)} kmers)")
-            colour += h2.ncols
-            continue
-        _, sample, files = task
-        total_seq = 0
-        nreads = 0
+    with timing.span("read"):
+        for task in tasks:
+            if task[0] == "graph":
+                h2, k2, c2, e2 = ctxio.read_ctx(task[1])
+                if h2.kmer_size != k:
+                    p.error(f"--graph {task[1]}: kmer size "
+                            f"{h2.kmer_size} != {k}")
+                gmerge.append((colour, k2, c2, e2))
+                ginfo.extend(h2.ginfo)
+                status(f"colour {colour}..{colour + h2.ncols - 1}: graph "
+                       f"{task[1]} ({len(k2)} kmers)")
+                colour += h2.ncols
+                continue
+            _, sample, files = task
+            total_seq = 0
+            nreads = 0
 
-        def _emit(codes, quals):
-            nonlocal total_seq, nreads
-            codes = _mask(np.ascontiguousarray(codes), quals)
-            total_seq += int((codes < 4).sum())
-            nreads += codes.shape[0]
-            batches.append((codes, colour))
+            def _emit(codes, quals):
+                nonlocal total_seq, nreads
+                codes = _mask(np.ascontiguousarray(codes), quals)
+                total_seq += int((codes < 4).sum())
+                nreads += codes.shape[0]
+                batches.append((codes, colour))
 
-        def _keep(c1, c2, *quals):
-            """Apply the PCR filter to one batch (a pair when c2 is
-            given); returns the kept rows of every array, or None when
-            none is left."""
-            nonlocal ndup
-            if pcr is None:
-                return (c1, c2) + quals
-            keepm = pcr.filter_batch(c1, c2)
-            ndup += int((~keepm).sum()) * (1 if c2 is None else 2)
-            if not keepm.any():
-                return None
-            return tuple(None if x is None else x[keepm]
-                         for x in (c1, c2) + quals)
+            def _keep(c1, c2, *quals):
+                """Apply the PCR filter to one batch (a pair when c2 is
+                given); returns the kept rows of every array, or None when
+                none is left."""
+                nonlocal ndup
+                if pcr is None:
+                    return (c1, c2) + quals
+                keepm = pcr.filter_batch(c1, c2)
+                ndup += int((~keepm).sum()) * (1 if c2 is None else 2)
+                if not keepm.any():
+                    return None
+                return tuple(None if x is None else x[keepm]
+                             for x in (c1, c2) + quals)
 
-        for entry in files:
-            kind = entry[0]
-            if kind == "se":
-                for codes, quals, _ in seqio.read_batches_native(
-                        [entry[1]], colour=colour, overlap=k, **reader):
-                    kept = _keep(codes, None, quals)
-                    if kept is not None:
-                        _emit(kept[0], kept[2])
-            elif kind == "pe":
-                # a pair is dropped only when both mates' start kmers
-                # were seen
-                for c1, c2, _ in seqio.read_batches_pe(
-                        entry[1], entry[2], colour=colour,
-                        matedir=args.matepair, **reader):
-                    kept = _keep(c1, c2)
-                    if kept is not None:
-                        _emit(kept[0], None)
-                        _emit(kept[1], None)
-            else:   # interleaved: even rows = r1, odd rows = r2
-                for c1, c2, q1, q2, _ in seqio.read_batches_interleaved(
-                        entry[1], colour=colour, matedir=args.matepair,
-                        **reader):
-                    kept = _keep(c1, c2, q1, q2)
-                    if kept is not None:
-                        _emit(kept[0], kept[2])
-                        _emit(kept[1], kept[3])
-        ginfo.append(ctxio.GraphInfo(
-            sample_name=sample, total_sequence=total_seq,
-            mean_read_length=total_seq // max(nreads, 1)))
-        status(f"colour {colour} '{sample}': {nreads} reads, "
-               f"{total_seq} bases")
-        colour += 1
+            for entry in files:
+                kind = entry[0]
+                if kind == "se":
+                    for codes, quals, _ in seqio.read_batches_native(
+                            [entry[1]], colour=colour, overlap=k, **reader):
+                        kept = _keep(codes, None, quals)
+                        if kept is not None:
+                            _emit(kept[0], kept[2])
+                elif kind == "pe":
+                    # a pair is dropped only when both mates' start kmers
+                    # were seen
+                    for c1, c2, _ in seqio.read_batches_pe(
+                            entry[1], entry[2], colour=colour,
+                            matedir=args.matepair, **reader):
+                        kept = _keep(c1, c2)
+                        if kept is not None:
+                            _emit(kept[0], None)
+                            _emit(kept[1], None)
+                else:   # interleaved: even rows = r1, odd rows = r2
+                    for c1, c2, q1, q2, _ in seqio.read_batches_interleaved(
+                            entry[1], colour=colour, matedir=args.matepair,
+                            **reader):
+                        kept = _keep(c1, c2, q1, q2)
+                        if kept is not None:
+                            _emit(kept[0], kept[2])
+                            _emit(kept[1], kept[3])
+            ginfo.append(ctxio.GraphInfo(
+                sample_name=sample, total_sequence=total_seq,
+                mean_read_length=total_seq // max(nreads, 1)))
+            status(f"colour {colour} '{sample}': {nreads} reads, "
+                   f"{total_seq} bases")
+            colour += 1
     ncols = colour
-    status(f"read {len(batches)} batches in {time.perf_counter() - t0:.3f}s "
+    status(f"read {len(batches)} batches in {timing.SPANS['read']:.3f}s "
            f"({seqio.reader_name()} reader)")
     if args.remove_pcr:
         status(f"removed {ndup} PCR duplicate reads")
@@ -192,21 +192,22 @@ def cmd_build(argv):
 
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-    t0 = time.perf_counter()
     if len(devices) > 1:
-        from ..parallel import shard as psh
         status(f"sharded build over {len(devices)} devices "
                f"(kmer-space hash partition)")
-        g = psh.build_sharded(batches, k, ncols, devices,
-                              capacity_hint=nkmers_hint(args))
-    else:
-        g = gbuild.build(batches, k, ncols=ncols, device=device,
-                         capacity=nkmers_hint(args))
-    if device.type == "cuda":
-        for d in set(devices):
-            torch.cuda.synchronize(d)
+    with timing.span("build", device):
+        if len(devices) > 1:
+            from ..parallel import shard as psh
+            g = psh.build_sharded(batches, k, ncols, devices,
+                                  capacity_hint=nkmers_hint(args))
+            if device.type == "cuda":
+                for d in set(devices):
+                    torch.cuda.synchronize(d)
+        else:
+            g = gbuild.build(batches, k, ncols=ncols, device=device,
+                             capacity=nkmers_hint(args))
     status(f"built {g.n} kmers from {len(batches)} batches in "
-           f"{time.perf_counter() - t0:.3f}s on {where} "
+           f"{timing.SPANS['build']:.3f}s on {where} "
            f"(sort engine {gbuild.SORT_IMPL})")
     if gmerge:
         g = _store_from_host_records(
@@ -223,12 +224,12 @@ def cmd_build(argv):
     if budget is not None:
         status(mb.check_plan(budget, mb.graph_mem_bytes(g.n, nwords(k),
                                                         ncols)))
-    t0 = time.perf_counter()
-    keys, covg, edges = gstore.to_host(g)
-    hdr = ctxio.CtxHeader(kmer_size=k, ginfo=ginfo)
-    ctxio.write_ctx(out, hdr, keys, covg, edges)
+    with timing.span("write"):
+        keys, covg, edges = gstore.to_host(g)
+        hdr = ctxio.CtxHeader(kmer_size=k, ginfo=ginfo)
+        ctxio.write_ctx(out, hdr, keys, covg, edges)
     status(f"wrote {len(keys)} kmers x {ncols} colours to {out} in "
-           f"{time.perf_counter() - t0:.3f}s")
+           f"{timing.SPANS['write']:.3f}s")
     return 0
 
 
@@ -453,7 +454,7 @@ def cmd_clean(argv):
     status, device = apply_common(args, args.out, args.covg_before,
                                   args.covg_after, args.len_before,
                                   args.len_after)
-    timing.SPANS.clear()
+    timing.reset()
     from ..graph import clean as gclean
     h, g = _load_graphs(args.ctx, device)
     k = h.kmer_size
@@ -530,7 +531,7 @@ def cmd_unitigs(argv):
     add_common(p)
     args = p.parse_args(argv)
     status, device = apply_common(args, args.out)
-    timing.SPANS.clear()
+    timing.reset()
     from ..graph import unitigs as gu
     h, g = _load_graphs(args.ctx, device)
     seqs = gu.extract_unitigs(g)
@@ -569,7 +570,7 @@ def cmd_inferedges(argv):
     add_common(p)
     args = p.parse_args(argv)
     status, device = apply_common(args, args.out)
-    timing.SPANS.clear()
+    timing.reset()
     from ..graph import infer_edges as ie
     h, g = _load_graphs([args.ctx], device)
     g2 = ie.infer_edges(g, pop_only=not args.all_edges)
@@ -629,7 +630,7 @@ def cmd_contigs(argv):
     args = p.parse_args(argv)
     status, device = apply_common(args, args.out, args.confid_csv)
     devices = devices_arg(args)
-    timing.SPANS.clear()
+    timing.reset()
     from ..graph import traverse as T
     from ..utils.stats import contig_stats
     h, g = _load_graphs([args.ctx], device)
@@ -909,7 +910,7 @@ def cmd_thread(argv):
         p.error("at least one --seq/--seq2/--seqi required")
     if args.fq_offset not in (0, 33, 64):
         p.error("--fq-offset must be 33 or 64 (0 = auto)")
-    timing.SPANS.clear()
+    timing.reset()
     import dataclasses
     from ..align.correct import CorrectAlnStats
     from ..io import ctp as ctpio
@@ -1069,7 +1070,7 @@ def cmd_bubbles(argv):
     add_common(p)
     args = p.parse_args(argv)
     status, device = apply_common(args, args.out)
-    timing.SPANS.clear()
+    timing.reset()
     from ..calls import bubbles as bub
     from ..io import callfile
     from ..io import ctp as ctpio

@@ -55,7 +55,7 @@ def cmd_subgraph(argv):
     from ..graph import subgraph as sg
     from ..io import seqio
     from ..utils import timing
-    timing.SPANS.clear()
+    timing.reset()
     h, g = _load_graphs(args.ctx, device)
     batches = [codes for codes, _, _ in seqio.read_batches(args.seq)]
     g2 = sg.subgraph(g, batches, dist=args.dist, invert=args.invert,
@@ -567,7 +567,7 @@ def cmd_reads(argv):
     status, device = apply_common(args)
     from ..io import seqio
     from ..utils import timing
-    timing.SPANS.clear()
+    timing.reset()
     h, g = _load_graph(args.ctx, device)
     ext = ".fq.gz" if args.format == "fastq" else ".fa.gz"
     kept = total = 0
@@ -683,7 +683,7 @@ def cmd_coverage(argv):
     from ..io import seqio
     from ..utils import timing
     from ..utils.text import edges_to_strings
-    timing.SPANS.clear()
+    timing.reset()
     h, g = _load_graphs(args.ctx, device)
     k = g.k
     covg = g.covg.cpu().numpy().view(np.uint32)
@@ -769,7 +769,7 @@ def cmd_popbubbles(argv):
     status, device = apply_common(args, args.out)
     from ..calls import pop_bubbles as pb
     from ..utils import timing
-    timing.SPANS.clear()
+    timing.reset()
     h, g = _load_graphs(args.ctx, device)
     with timing.span("pop", device):
         g2, npopped = pb.pop_bubbles(g, max_covg=args.max_covg,

@@ -114,7 +114,7 @@ def cmd_correct(argv):
         p.error("--fq-offset must be 33 or 64 (0 = auto)")
     if args.max_context is None:
         args.max_context = acorrect.MAX_CONTEXT
-    timing.SPANS.clear()
+    timing.reset()
     h, g = _load_graphs([args.ctx], device)
     links = ctpio.load_link_store(args.paths, g) if args.paths else None
     aln_stats = acorrect.CorrectAlnStats()
@@ -311,7 +311,7 @@ def cmd_links(argv):
     from ..io import ctp as ctpio
     from ..links import link_tree as ltree
     from ..links import store as lstore
-    timing.SPANS.clear()
+    timing.reset()
     h, g = _load_graphs([args.ctx], device)
     with timing.span("links", device):
         links = ctpio.load_ctp(args.ctp, g)
@@ -424,7 +424,7 @@ def cmd_breakpoints(argv):
     add_common(p)
     args = p.parse_args(argv)
     status, device = apply_common(args, args.out)
-    timing.SPANS.clear()
+    timing.reset()
     from .. import __version__
     from ..calls import breakpoints as bk
     from ..graph import kmer_occur as KO
@@ -695,7 +695,7 @@ def cmd_vcfcov(argv):
     add_common(p)
     args = p.parse_args(argv)
     status, device = apply_common(args, args.out)
-    timing.SPANS.clear()
+    timing.reset()
     from ..calls import genotyping as gt
     from ..graph import kmer_occur as KO
     from ..io import vcf as vcfio

@@ -31,6 +31,7 @@ from ..constants import CHAR_TO_BASE
 from ..links import store as lstore
 from ..ops import sorted as sops
 from ..utils.text import kmers_to_strings, strings_to_kmers
+from ..utils.timing import count
 
 _BASECHARS = np.frombuffer(b"ACGT", np.uint8)
 
@@ -99,6 +100,8 @@ def save_ctp(path: str, g, links: lstore.LinkStore, sample_names=None,
                     for c in range(ncols)],
     }
     kstrs = kmers_to_strings(keys, g.k)
+    count("ctp.kmers_formatted", len(keys))
+    count("ctp.kmers_written", int(kmer_has.sum()))
     jstrs = _decode_juncs(seq, nj)
     cstrs = [",".join(str(int(x)) for x in row) for row in nseen]
     with gzip.open(path, "wt") as fh:

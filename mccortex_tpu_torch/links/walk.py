@@ -44,7 +44,7 @@ from ..graph import traverse as T
 from ..ops import kmer as kops
 from ..ops import sorted as sops
 from ..utils.text import kmers_to_strings
-from ..utils.timing import span
+from ..utils.timing import count, span
 from . import store as lstore
 
 CMAX = 64   # cursor slots per walker
@@ -518,9 +518,12 @@ def walk_linked(g: gstore.DBGraph, links: lstore.LinkStore,
                 used=torch.cat([st.used, st.used.new_zeros(1)]),
                 hop_v=T._spare(st.hop_v, 0), hop_n=T._spare(st.hop_n, 0),
                 hop_off=T._spare(st.hop_off, 0))
+    steps = 0
     while bool((st.base.active
                 & (st.base.nsteps - w.start < max_steps)).any()):
         st = _linked_step(w, st, bufs, Lmax)
+        steps += 1
+    count("walk.steps", steps)
     return st.replace(
         base=_rbase(st.base, out_bases=bufs["out_bases"][:, :Lmax],
                     out_vert=bufs["out_vert"][:, :Lmax]),
