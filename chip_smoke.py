@@ -92,13 +92,16 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    (0 bad links), `contigs -p -N 512` (one batch of 512 random seeds,
    not the whole graph, to stay in the time limit) with the first's
    links (--batch 512, --max-len 65536, --no-reseed); each must launch
-   the lookup kernel.  Checked in numpy: the contigs as in 4d, and 1000
+   the lookup kernel, and the gap-filled `thread` the walk kernel (the
+   other, none).  Checked in numpy: the contigs as in 4d, and 1000
    links of each file walked from their kmer along the graph's edge
    bytes, every junction an existing branch at a fork, all consumed
    before a dead end.  `assemble_contigs_primed` of 256 seeds at max_len
    200,000 with the gap-filled links, cold and warm; one gap-fill batch
    and one `contigs -p` batch under torch.profiler: walker steps, device
-   operations a step, the device's busy share;
+   operations a step, the device's busy share; the walk of that gap-fill
+   batch by the walk kernel and by the host loop from one state, every
+   field equal, both timed (the `walk` entry of the `kernels` line);
 4f. paired-end links and read correction on that cleaned graph: a
    library of 4,096 fragments of 400-500 bp drawn from the genome with
    numpy (mate 1 the first 150 bp, mate 2 the reverse complement of the
@@ -2157,19 +2160,21 @@ def phase_graph_cmds(tmp, two, genome):
 
 
 class StepCounter:
-    """Counts the linked walker's steps (links/walk._linked_step calls)
+    """Counts the linked walker's steps (the `walk.steps` counts of
+    links/walk.walk_linked, whether the kernel or the host loop walked)
     and the linked contig batches (assemble_contigs_primed calls, summing
     their dropped pickups)."""
 
     def __init__(self, lwalk):
         self.lwalk, self.steps, self.batches, self.drops = lwalk, 0, 0, 0
-        self._step = lwalk._linked_step
+        self._count = lwalk.count
         self._primed = lwalk.assemble_contigs_primed
 
     def __enter__(self):
-        def step(*a, **kw):
-            self.steps += 1
-            return self._step(*a, **kw)
+        def count(name, n=1):
+            if name == "walk.steps":
+                self.steps += n
+            return self._count(name, n)
 
         def primed(*a, **kw):
             self.batches += 1
@@ -2178,12 +2183,12 @@ class StepCounter:
                 self.drops += out[2]["n_drop"]
             return out
 
-        self.lwalk._linked_step = step
+        self.lwalk.count = count
         self.lwalk.assemble_contigs_primed = primed
         return self
 
     def __exit__(self, *exc):
-        self.lwalk._linked_step = self._step
+        self.lwalk.count = self._count
         self.lwalk.assemble_contigs_primed = self._primed
 
 
@@ -2288,24 +2293,29 @@ N_GAP_READS = 32_768      # phase 4e's reads through gap-filled thread (a
                           # limit once the calling phases came in)
 
 
-def phase_links(torch, tmp, card, genome, reads, fq, linkless_n50) -> int:
+def phase_links(torch, tmp, card, genome, reads, fq, linkless_n50,
+                results) -> tuple:
     """4e: links on the cleaned E. coli graph of phase 4b, through the CLI
     on the card: thread --no-gap-fill over all the reads, thread with gap
-    filling over the first N_GAP_READS, check -p of both, contigs -p with
-    the first's links from 512 random seeds; assemble_contigs_primed of 256
-    seeds at max_len 200,000 with the gap-filled links, cold and warm; a
-    gap-fill batch and a contigs -p batch under torch.profiler.  Returns
-    the lookup kernel's launches."""
+    filling over the first N_GAP_READS (which must launch the walk
+    kernel), check -p of both, contigs -p with the first's links from 512
+    random seeds; assemble_contigs_primed of 256 seeds at max_len 200,000
+    with the gap-filled links, cold and warm; a gap-fill batch and a
+    contigs -p batch under torch.profiler; the walk kernel against the
+    host loop on that gap-fill batch's walk (results["walk"]).  Returns
+    the lookup kernel's launches and the gap-filled thread's of the walk
+    kernel."""
     from mccortex_tpu_torch.align import correct as acorrect
     from mccortex_tpu_torch.graph import store as gstore
     from mccortex_tpu_torch.io import ctp
     from mccortex_tpu_torch.io import ctx as ctxio
     from mccortex_tpu_torch.links import walk as lwalk
+    from mccortex_tpu_torch.ops.kernels import _build
 
     cln = os.path.join(tmp, "clean.ctx")
     h, keys, covg, edges = ctxio.read_ctx(cln)
     kv = keys[:, 0]
-    lookups = 0
+    lookups = walk_launches = 0
     all_ctp = os.path.join(tmp, "links_all.ctp.gz")
     gap_ctp = os.path.join(tmp, "links_gap.ctp.gz")
     fq_gap = os.path.join(tmp, "reads_gap.fq")
@@ -2317,6 +2327,11 @@ def phase_links(torch, tmp, card, genome, reads, fq, linkless_n50) -> int:
             log, wall, nl = lookups_of(["thread"] + argv + ["-o", out, cln],
                                        label)
         lookups += nl
+        walks = _build.LAUNCHES.get("walk", 0)
+        if (walks > 0) != (label == "thread"):
+            fail(f"mctx-torch {label} launched the walk kernel {walks} "
+                 f"times")
+        walk_launches += walks
         nreads, nlinks = thread_counts(log)
         print(f"links on {card}: mctx-torch {label} of {nreads} reads over "
               f"the {len(kv)}-kmer cleaned graph: wall {wall:.3f}s "
@@ -2408,8 +2423,62 @@ def phase_links(torch, tmp, card, genome, reads, fq, linkless_n50) -> int:
               f"({json.dumps(kinds)}), {ops / sc.steps:.1f} per step; device "
               f"time {1e3 * dev_s:.3f} ms, busy {100 * dev_s / pwall:.1f}% of "
               f"its wall under the profiler ({pwall:.4f}s)")
+    results["walk"] = check_walk_kernel(torch, g, batch)
     del g, gap_links, all_links
-    return lookups
+    return lookups, walk_launches
+
+
+def check_walk_kernel(torch, g, batch) -> dict:
+    """The walk of one gap-fill batch (correct_batch, forced priming, no
+    links) by the walk kernel and by the host loop of _linked_step from
+    the same state (tests/walk_cases.py): the elements of the states that
+    differ (every field), the call's time both ways (CUDA events), and
+    the kernel's own device time (torch.profiler)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import walk_cases as wc
+    from mccortex_tpu_torch.links import store as lstore
+    st, kw = wc.gapfill_walk(g, None, batch)
+    links = lstore.empty(g.capacity, g.ncols, device=g.device)
+
+    def walk(fused):
+        return wc.walk_both(g, links, st, kw, fused)
+
+    got, want = walk(True), walk(False)
+    err = sum(int((a != b).sum()) for (_n, a), (_m, b) in zip(
+        wc.state_fields(got), wc.state_fields(want)))
+    if err:
+        fail(f"walk kernel: {err} elements of the state differ from the "
+             f"host loop's ({', '.join(wc.differing_fields(got, want))})")
+    B = st.cur_link.shape[0]
+    steps = (want.base.nsteps - st.base.nsteps)
+    ms = time_ms(torch, lambda: walk(True), 10)
+    plain = time_ms(torch, lambda: walk(False), 2)
+    # the kernel's own device time; host activity is traced too, without
+    # which the profiler saw no launch made through the kernel's library
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        walk(True)
+        torch.cuda.synchronize()
+    kernel_ms = sum(e.duration_ns() for e in
+                    prof.profiler.kineto_results.events()
+                    if "walk_kernel" in e.name()) / 1e6 or None
+    print(f"walk kernel: a gap-fill batch's walk ({B} walkers, "
+          f"{int(steps.max())} steps of the longest, {int(steps.sum())} "
+          f"walker steps, forced priming, links {links.nlinks}): every "
+          f"field equal to the host loop's; walk_linked {ms:.4f} ms by the "
+          f"kernel (the launch "
+          f"{'not measured' if kernel_ms is None else f'{kernel_ms:.4f} ms'}"
+          f" of device time), {plain:.4f} ms by the host loop")
+    # bytes: the state in and out, and each walker step's reads of the
+    # graph (adjacency row 16, coverage 4 x 4, union and colour edge
+    # bytes 2, link offsets 8); operations: ~200 a walker step
+    state = sum(a.nbytes for _n, a in wc.state_fields(st))
+    out = row(err, ms, plain, 2 * state + 42 * int(steps.sum()),
+              200 * int(steps.sum()))
+    out.update(kernel_device_ms=kernel_ms, walkers=B,
+               longest_steps=int(steps.max()))
+    return out
 
 
 def pe_library(genome: np.ndarray, n: int, seed: int, rlen: int = 150,
@@ -3764,8 +3833,9 @@ def main():
                                                      genome)
         elapsed("4d")
         # 4e. link threading and linked contigs on the cleaned graph
-        lookups_4e = phase_links(torch, tmp, card, genome, reads,
-                                 os.path.join(tmp, "reads.fq"), linkless_n50)
+        lookups_4e, walks_4e = phase_links(
+            torch, tmp, card, genome, reads, os.path.join(tmp, "reads.fq"),
+            linkless_n50, results)
         elapsed("4e")
         # 4f. paired-end links, link cleaning, correction, reads, coverage
         lookups_4f = phase_reads_correct(torch, tmp, card, genome, reads,
@@ -3802,7 +3872,8 @@ def main():
     # contigs -p, from thread -2, links, correct, reads and coverage,
     # from bubbles, breakpoints, vcfcov and popbubbles, from server and
     # from the sharded lookups (the sharded build's launches stand beside
-    # the main build's as launches_sharded)
+    # the main build's as launches_sharded), the walk kernel from the
+    # gap-filled thread of 4e
     launches = {"frontend": by_engine["lax"]["frontend"],
                 "segreduce": by_engine["lax"]["segreduce"],
                 "mergepath": by_engine["lax"]["mergepath"],
@@ -3811,7 +3882,8 @@ def main():
                 "mergelevel": by_engine["mp"]["mergelevel"],
                 "bitonic_blocksort": by_engine["mp"]["bitonic_blocksort"],
                 "bitonic_tail": by_engine["bitonic"]["bitonic_tail"],
-                "bitonic_butterfly": by_engine["bitonic"]["bitonic_butterfly"]}
+                "bitonic_butterfly": by_engine["bitonic"]["bitonic_butterfly"],
+                "walk": walks_4e}
     sources = {"mergelevel": "mergepath", "bitonic_blocksort": "bitonic",
                "bitonic_tail": "bitonic", "bitonic_butterfly": "bitonic"}
     replaces = {
@@ -3822,7 +3894,9 @@ def main():
         "mergelevel": "mccortex_tpu/ops/pallas/mergepath.py:190",
         "bitonic_blocksort": "mccortex_tpu/ops/pallas/bitonic.py:106",
         "bitonic_tail": "mccortex_tpu/ops/pallas/bitonic.py:141",
-        "bitonic_butterfly": "mccortex_tpu/ops/pallas/bitonic.py:186"}
+        "bitonic_butterfly": "mccortex_tpu/ops/pallas/bitonic.py:186",
+        # no Pallas kernel: the JAX walk_linked is XLA under lax.while_loop
+        "walk": "none (mccortex_tpu/links/walk.py walk_linked)"}
     # segreduce: one call an epoch (as many as front-end calls) and one a
     # merge (as many as merge-path calls) under lax
     lax = by_engine["lax"]

@@ -27,6 +27,12 @@ leaves on the same step.  The per-slot pickup loops of the JAX step are
 one vectorised update here (slot s of a walker takes its s-th free slot
 in both).  Writes the JAX package drops with `mode="drop"` go to one
 spare column or slot, sliced off.  uint64 hashes are int64 bit views.
+
+On a card, a walk with the adjacency and without hops, the confidence
+model, the missing-information check or used-link marks (the gap
+filler's) runs in one launch of the walk kernel (csrc/walk.cu, a warp a
+walker, every step inside the kernel); every other walk, and every walk
+on the CPU, runs the host loop, which is the kernel's reference.
 """
 
 from __future__ import annotations
@@ -510,6 +516,28 @@ def walk_linked(g: gstore.DBGraph, links: lstore.LinkStore,
                                       device=dev),
               min_cumul_t=torch.tensor(min_cumul, dtype=torch.float32,
                                        device=dev))
+    # both counts on every call, so the status line shows the share
+    fused = _takes_kernel(w)
+    count("walk.fused", int(fused))
+    count("walk.plain", int(not fused))
+    st, steps = (_walk_fused if fused else _walk_plain)(w, st)
+    count("walk.steps", steps)
+    return st
+
+
+def _takes_kernel(w: _Walk) -> bool:
+    """The walk kernel (csrc/walk.cu) runs a walk on CUDA tensors with the
+    adjacency and without hop records, the confidence model, the
+    missing-information check or used-link marks: the gap filler's walks
+    (align/correct.correct_batch).  Every other walk runs the host loop."""
+    return (w.g.device.type == "cuda" and w.adj is not None
+            and w.hopinfo is None and w.conf_table is None
+            and not w.missing_check and not w.track_used)
+
+
+def _walk_plain(w: _Walk, st: LinkedWalkState):
+    """The host loop: one _linked_step a step, the loop condition read once
+    a step.  Returns (state, steps taken)."""
     Lmax = st.base.out_bases.shape[1]
     nl = st.used.shape[0]
     H = st.hop_v.shape[1]
@@ -520,15 +548,95 @@ def walk_linked(g: gstore.DBGraph, links: lstore.LinkStore,
                 hop_off=T._spare(st.hop_off, 0))
     steps = 0
     while bool((st.base.active
-                & (st.base.nsteps - w.start < max_steps)).any()):
+                & (st.base.nsteps - w.start < w.max_steps)).any()):
         st = _linked_step(w, st, bufs, Lmax)
         steps += 1
-    count("walk.steps", steps)
     return st.replace(
         base=_rbase(st.base, out_bases=bufs["out_bases"][:, :Lmax],
                     out_vert=bufs["out_vert"][:, :Lmax]),
         used=bufs["used"][:nl], hop_v=bufs["hop_v"][:, :H],
-        hop_n=bufs["hop_n"][:, :H], hop_off=bufs["hop_off"][:, :H])
+        hop_n=bufs["hop_n"][:, :H], hop_off=bufs["hop_off"][:, :H]), steps
+
+
+# what a step of the kernel writes: (field, dtype, columns: 0 for a (B,)
+# field, None for a (B, n) field of any n)
+_KERNEL_BASE = (("idx", torch.int32, 0), ("orient", torch.uint8, 0),
+                ("okm", torch.int64, None), ("active", torch.bool, 0),
+                ("status", torch.int32, 0), ("nsteps", torch.int32, 0),
+                ("brent_hash", torch.int64, 0),
+                ("brent_steps", torch.int32, 0),
+                ("brent_limit", torch.int32, 0),
+                ("out_bases", torch.uint8, None),
+                ("out_vert", torch.int32, None), ("out_len", torch.int32, 0))
+_KERNEL_SLOTS = (("cur_link", torch.int32, CMAX),
+                 ("cur_pos", torch.int32, CMAX),
+                 ("cur_age", torch.int32, CMAX),
+                 ("cntr_age", torch.int32, CMAX2),
+                 ("seg_nodes", torch.int32, SMAX),
+                 ("seg_infork", torch.bool, SMAX), ("n_drop", torch.int32, 0))
+
+
+def _kernel_copy(t: torch.Tensor, name: str, dtype, cols, B: int
+                 ) -> torch.Tensor:
+    """A contiguous copy of state field t, which the kernel updates in
+    place, after checking its type and shape."""
+    if t.dtype != dtype or t.shape[0] != B or (
+            cols is not None and tuple(t.shape[1:]) != ((cols,) if cols
+                                                         else ())):
+        raise ValueError(f"walk kernel: state field {name} is "
+                         f"{t.dtype} {tuple(t.shape)}")
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _walk_fused(w: _Walk, st: LinkedWalkState):
+    """The host loop of _walk_plain as one launch of the walk kernel, a
+    warp a walker: the fields a step writes are copied and updated in
+    place; the others are returned as they came.  Returns (state, steps
+    of the longest-walking walker), the steps being the host loop's
+    iteration count, since a walker never becomes active again."""
+    from ..ops.kernels import _build
+    g, links = w.g, w.links
+    b = st.base
+    B = b.idx.shape[0]
+    if B == 0:
+        return st, 0
+    W = b.okm.shape[1]
+    base = _rbase(b, **{f: _kernel_copy(getattr(b, f), f, dt, c, B)
+                        for f, dt, c in _KERNEL_BASE})
+    st2 = st.replace(base=base, **{
+        f: _kernel_copy(getattr(st, f), f, dt, c, B)
+        for f, dt, c in _KERNEL_SLOTS})
+    cntr_link = st.cntr_link.contiguous()
+    cntr_pos = st.cntr_pos.contiguous()
+    covg, edges = g.covg.contiguous(), g.edges.contiguous()
+    nseen = links.nseen.contiguous()
+    seq = links.seq.contiguous()
+    forced = forced_n = None
+    F = 0
+    if w.forced is not None:
+        forced = w.forced.to(g.device, torch.uint8).contiguous()
+        forced_n = w.forced_n.to(g.device, torch.int32).contiguous()
+        F = forced.shape[1]
+    ptrs = [w.uedges.contiguous(), covg, edges,
+            w.adj.to(torch.int32).contiguous(), links.offsets.contiguous(),
+            seq, links.nj.contiguous(), nseen,
+            forced, forced_n, base.idx, base.orient, base.okm, base.active,
+            base.status, base.nsteps, base.brent_hash, base.brent_steps,
+            base.brent_limit, base.out_bases, base.out_vert, base.out_len,
+            st2.cur_link, st2.cur_pos, st2.cur_age, cntr_link, cntr_pos,
+            st2.cntr_age, st2.seg_nodes, st2.seg_infork, st2.n_drop]
+    ints = [B, W, g.k, base.out_bases.shape[1],
+            min(max(w.max_steps, 0), 2**31 - 1),
+            -1 if w.colour is None else int(w.colour), covg.shape[1],
+            w.edge_colour, links.nlinks, seq.shape[1], w.ctpcol,
+            nseen.shape[1], F]
+    fn = _build.function("walk", "mctx_walk", len(ptrs), len(ints))
+    with torch.cuda.device(g.device):
+        rc = fn(*[None if t is None else t.data_ptr() for t in ptrs], *ints,
+                _build.stream_of(base.idx))
+    _build.check(rc, "walk")
+    steps = int((base.nsteps - b.nsteps).max())
+    return st2, steps
 
 
 def _linked_step(w: _Walk, st: LinkedWalkState, bufs: dict, Lmax: int

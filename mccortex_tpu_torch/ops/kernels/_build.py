@@ -32,7 +32,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-KERNELS = ("frontend", "segreduce", "mergepath", "lookup", "bitonic")
+KERNELS = ("frontend", "segreduce", "mergepath", "lookup", "bitonic",
+           "walk")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"

@@ -2,7 +2,7 @@
 """Run CUDA kernels of mccortex_tpu_torch/csrc on the CPU, for their logic.
 
     python scripts/cuda_emul/emulate.py [lookup] [bitonic] [tail] [mergepath]
-                                        [frontend] [segreduce]
+                                        [frontend] [segreduce] [walk]
 
 A machine without nvcc or a GPU cannot compile or run a .cu.  This
 rewrites a source for g++ (the CUDA runtime header becomes cuda_emul.h,
@@ -19,13 +19,17 @@ with N at the first, the last and inner bases, writing every window or
 an epoch's, and the segreduce with runs that cross tiles, tiles without
 a start, sentinel-only input, wrapping sums, key planes held and not
 held in registers, the count plane dropped, and status words left by
-earlier calls.  It proves nothing about what nvcc accepts, nor about
+earlier calls, and the linked walk kernel through links/walk.py's own
+wrapper on the walks of tests/walk_cases.py (gap filling with and
+without links, dropped pickups, cycles, both halts, k = 31 and 63), every
+field of the state against the host loop's.  It proves nothing about what nvcc accepts, nor about
 speed, and since blocks run in order it cannot show a look-back that
 waits on a later block.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import re
@@ -39,6 +43,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 from mccortex_tpu_torch.constants import nwords  # noqa: E402
 from mccortex_tpu_torch.ops.kernels import (  # noqa: E402
@@ -393,9 +398,51 @@ def check_segreduce(tmp: str) -> None:
             sys.exit(1)
 
 
+def check_walk(tmp: str) -> None:
+    import walk_cases as wc
+    from mccortex_tpu_torch.ops.kernels import _build
+    fn = build("walk", tmp, 31, 13, "mctx_walk")
+    # links/walk._walk_fused as it is, its launch on the CPU
+    _build.function = lambda *a: fn
+    _build.stream_of = lambda t: None
+    torch.cuda.device = lambda d: contextlib.nullcontext()
+
+    cases = [
+        ("gap filling, no links, k=31",
+         lambda: wc.gapfill_case(31, "cpu", with_links=False)),
+        ("gap filling with links, k=31", lambda: wc.gapfill_case(31, "cpu")),
+        ("gap filling with links, k=63",
+         lambda: wc.gapfill_case(63, "cpu", rlen=150)),
+        ("repeat, dropped pickups, k=31", lambda: wc.repeat_walks(31, "cpu")),
+        ("repeat, colour None, k=63",
+         lambda: wc.repeat_walks(63, "cpu", colour=None)),
+        ("cycle with links, k=31", lambda: wc.cycle_walks(31, "cpu")),
+        ("cycle, no links, k=63",
+         lambda: wc.cycle_walks(63, "cpu", with_links=False)),
+        ("max_len halt", lambda: wc.halt_walks(31, "cpu", 5, 50)),
+        ("max_steps halt", lambda: wc.halt_walks(31, "cpu", 400, 7))]
+    for label, make in cases:
+        g, links, st, kw = make()
+        want = wc.walk_both(g, links, st, kw, False)
+        got = wc.walk_both(g, links, st, kw, True)
+        # resumed from the state the first call left
+        want2 = wc.walk_both(g, links, want, kw, False)
+        got2 = wc.walk_both(g, links, want, kw, True)
+        bad = wc.differing_fields(got, want) + wc.differing_fields(got2,
+                                                                  want2)
+        print(f"walk {label}: {st.cur_link.shape[0]} walkers, "
+              f"{links.nlinks} links, halts "
+              f"{np.bincount(want.base.status.numpy(), minlength=13)}, "
+              f"{int(want.n_drop.sum())} drops: "
+              f"{'exact' if not bad else 'MISMATCH ' + ', '.join(bad)}",
+              flush=True)
+        if bad:
+            sys.exit(1)
+
+
 def main() -> None:
     which = sys.argv[1:] or ["lookup", "bitonic", "tail", "mergepath",
-                             "frontend", "segreduce"]
+                             "frontend", "segreduce", "walk"]
     with tempfile.TemporaryDirectory() as tmp:
         if "lookup" in which:
             check_lookup(tmp)
@@ -409,6 +456,8 @@ def main() -> None:
             check_frontend(tmp)
         if "segreduce" in which:
             check_segreduce(tmp)
+        if "walk" in which:
+            check_walk(tmp)
     print("ok")
 
 

@@ -1029,3 +1029,71 @@ def test_build_sharded_on_card_matches_one_device(cuda, grid):
     assert torch.equal(found, fnd) and int(fnd.sum()) >= want.n
     assert torch.equal(covg[:want.n], want.covg)
     assert torch.equal(edges[:want.n], want.edges)
+
+
+def _walk_case(name):
+    import walk_cases as wc
+    return {
+        "gap filling, no links": lambda: wc.gapfill_case(
+            31, "cuda", with_links=False, gbp=4000, n_reads=480),
+        "gap filling with links": lambda: wc.gapfill_case(
+            31, "cuda", gbp=4000, n_reads=480),
+        "gap filling with links, k=63": lambda: wc.gapfill_case(
+            63, "cuda", rlen=150, gbp=4000, n_reads=480),
+        "dropped pickups": lambda: wc.repeat_walks(31, "cuda"),
+        "dropped pickups, k=63, colour None":
+            lambda: wc.repeat_walks(63, "cuda", colour=None),
+        "cycle with links": lambda: wc.cycle_walks(31, "cuda"),
+        "cycle, no links, k=63":
+            lambda: wc.cycle_walks(63, "cuda", with_links=False),
+        "max_steps halt": lambda: wc.halt_walks(31, "cuda", 400, 7),
+        "max_len halt": lambda: wc.halt_walks(31, "cuda", 5, 50),
+    }[name]()
+
+
+@pytest.mark.parametrize("case", [
+    "gap filling, no links", "gap filling with links",
+    "gap filling with links, k=63", "dropped pickups",
+    "dropped pickups, k=63, colour None", "cycle with links",
+    "cycle, no links, k=63", "max_steps halt", "max_len halt"])
+def test_walk_kernel_matches_the_host_loop(cuda, case):
+    """The walk kernel (one launch a walk) against the host loop of
+    _linked_step on the same LinkedWalkState, on the card: every field
+    equal (out_bases, out_vert, status, n_drop, the Brent fields, the
+    cursors and segments), from the start state and resumed from the
+    state the first walk left."""
+    import walk_cases as wc
+    g, links, st, kw = _walk_case(case)
+    want = wc.walk_both(g, links, st, kw, False)
+    _build.LAUNCHES.clear()
+    got = wc.walk_both(g, links, st, kw, True)
+    assert _build.LAUNCHES["walk"] == 1
+    assert wc.differing_fields(got, want) == []
+    assert wc.differing_fields(wc.walk_both(g, links, want, kw, True),
+                               wc.walk_both(g, links, want, kw, False)) == []
+    assert int(want.base.nsteps.max()) > 0
+
+
+def test_gap_fill_batch_on_card_takes_the_walk_kernel(cuda):
+    """correct_batch on the card hands its walk to the kernel: walk.fused
+    1, walk.plain 0, walk.steps the host loop's iterations; its
+    corrected reads equal those of the CPU."""
+    import walk_cases as wc
+    from mccortex_tpu_torch.align import correct as acorrect
+    from mccortex_tpu_torch.links import store as ls
+    from mccortex_tpu_torch.utils import timing
+    g, reads = wc.diploid(31, "cuda", gbp=4000, n_reads=480)
+    st, kw = wc.gapfill_walk(g, None, reads)
+    want = wc.walk_both(g, ls.empty(g.capacity, 1, device="cuda"), st, kw,
+                        False)
+    timing.reset()
+    got = acorrect.correct_batch(g, None, reads)
+    assert timing.COUNTERS["walk.fused"] == 1
+    assert timing.COUNTERS["walk.plain"] == 0
+    assert timing.COUNTERS["walk.steps"] == int(
+        (want.base.nsteps - st.base.nsteps).max())
+    gc, _reads = wc.diploid(31, "cpu", gbp=4000, n_reads=480)
+    cpu = acorrect.correct_batch(gc, None, reads)
+    assert [(r.seq, r.nfixed) for r in got] == [(r.seq, r.nfixed)
+                                                for r in cpu]
+    assert any(r.nfixed for r in got)

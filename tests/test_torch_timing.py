@@ -147,9 +147,13 @@ def test_thread_counts_walker_steps_and_ctp_kmers(tiny, capsys):
                       str(d / "l.ctp.gz"), ctx, "--device", "cpu"]) == 0
     c = dict(timing.COUNTERS)
     assert c["walk.steps"] > 0
+    # on the CPU every linked walk runs the host loop
+    assert c["walk.fused"] == 0 and c["walk.plain"] > 0
     assert c["ctp.kmers_formatted"] >= c["ctp.kmers_written"] > 0
     assert {"align", "gaps", "walk", "bridge"} <= set(timing.SPANS)
     line = re.findall(r"time split: (.*)", capsys.readouterr().err)[-1]
-    assert line.endswith(f"; counts: walk.steps {c['walk.steps']}, "
+    assert line.endswith(f"; counts: walk.fused 0, "
+                         f"walk.plain {c['walk.plain']}, "
+                         f"walk.steps {c['walk.steps']}, "
                          f"ctp.kmers_formatted {c['ctp.kmers_formatted']}, "
                          f"ctp.kmers_written {c['ctp.kmers_written']}")
