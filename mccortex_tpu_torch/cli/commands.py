@@ -230,6 +230,7 @@ def cmd_build(argv):
         ctxio.write_ctx(out, hdr, keys, covg, edges)
     status(f"wrote {len(keys)} kmers x {ncols} colours to {out} in "
            f"{timing.SPANS['write']:.3f}s")
+    status(f"time split: {timing.summary()}")
     return 0
 
 

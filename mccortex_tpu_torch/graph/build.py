@@ -37,6 +37,7 @@ from ..constants import nwords
 from ..ops import kmer as kops
 from ..ops import sorted as sops
 from ..ops.kernels import bitonic, frontend, mergepath, segreduce
+from ..utils.timing import count
 from . import store as gstore
 
 MIN_LEVEL = 1 << 15       # smallest LSM item capacity
@@ -276,11 +277,19 @@ class RecordFold:
     level is the sum of the capacities merged into it, and two items of
     one level are merged (and compacted) until the levels on the stack
     all differ.  `build` folds its epochs with it; parallel/shard.py
-    folds what each shard receives."""
+    folds what each shard receives.  The counter `fold.bytes` adds the
+    bytes of the records each merge takes in and gives out (8W + 5C a
+    record: the .ctx record's size)."""
 
     def __init__(self, W: int, C: int):
         self.W, self.C = W, C
         self._stack = []   # [(level, planes, n live)], levels decreasing
+
+    def _merge(self, a: torch.Tensor, b: torch.Tensor):
+        planes, n = _merge(a, b, self.W, self.C)
+        count("fold.bytes", (a.shape[1] + b.shape[1] + n)
+              * (8 * self.W + 5 * self.C))
+        return planes, n
 
     def push(self, item: torch.Tensor, n: int) -> None:
         """Fold one item: (2W + 2C, m) record planes, its n unique
@@ -290,7 +299,7 @@ class RecordFold:
         level = item.shape[1]
         while self._stack and self._stack[-1][0] == level:
             other_level, other, _ = self._stack.pop()
-            merged, n = _merge(other, item, self.W, self.C)
+            merged, n = self._merge(other, item)
             item = merged[:, :_capacity(n, merged.shape[1])].contiguous()
             level += other_level
         self._stack.append((level, item, n))
@@ -303,7 +312,7 @@ class RecordFold:
         _, item, n = self._stack.pop()
         while self._stack:
             _, other, _ = self._stack.pop()
-            item, n = _merge(other, item, self.W, self.C)
+            item, n = self._merge(other, item)
         return item, n
 
 

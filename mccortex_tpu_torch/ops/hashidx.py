@@ -39,7 +39,7 @@ import os
 import numpy as np
 import torch
 
-from ..utils.timing import span
+from ..utils.timing import count, span
 from . import kmer as kops
 from . import sorted as sops
 
@@ -177,8 +177,10 @@ def _cached(cache: dict, keys: torch.Tensor, build):
     if hit is not None and hit[0] is keys:
         return hit[1], hit[2]
     with span("table", keys.device):
-        table, b_bits = build(_live_host_keys(keys))
+        live = _live_host_keys(keys)
+        table, b_bits = build(live)
         table_t = torch.from_numpy(table.view(np.int32)).to(keys.device)
+    count("table.keys", len(live))      # a cache hit builds and counts none
     while len(cache) >= CACHE_ENTRIES:
         cache.pop(next(iter(cache)))
     cache[ck] = (keys, table_t, b_bits)

@@ -1,7 +1,9 @@
 """The port's tracer (mccortex_tpu_torch/utils/timing.py) on the CPU:
 span totals and nesting, counters, the `time split:` line, the spans as
-FUNCTION-scope host ranges under torch.profiler (none without one), and
-the counters and spans of a tiny `build` and `thread` through the CLI."""
+FUNCTION-scope host ranges under torch.profiler (none without one), the
+counters and spans of a tiny `build` and `thread` through the CLI, and
+the counters `fold.bytes` (graph/build.RecordFold) and `table.keys`
+(ops/hashidx) against hand-reckoned values."""
 
 import re
 import time
@@ -12,6 +14,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from mccortex_tpu_torch.cli.main import main as port_main
+from mccortex_tpu_torch.graph import build as gbuild
+from mccortex_tpu_torch.ops import hashidx
+from mccortex_tpu_torch.ops import sorted as sops
 from mccortex_tpu_torch.utils import timing
 
 K = 11
@@ -152,8 +157,54 @@ def test_thread_counts_walker_steps_and_ctp_kmers(tiny, capsys):
     assert c["ctp.kmers_formatted"] >= c["ctp.kmers_written"] > 0
     assert {"align", "gaps", "walk", "bridge"} <= set(timing.SPANS)
     line = re.findall(r"time split: (.*)", capsys.readouterr().err)[-1]
-    assert line.endswith(f"; counts: walk.fused 0, "
+    # the graph's lookup table, built once (counter `table.keys`)
+    assert c["table.keys"] > 0
+    assert line.endswith(f"; counts: table.keys {c['table.keys']}, "
+                         f"walk.fused 0, "
                          f"walk.plain {c['walk.plain']}, "
                          f"walk.steps {c['walk.steps']}, "
                          f"ctp.kmers_formatted {c['ctp.kmers_formatted']}, "
                          f"ctp.kmers_written {c['ctp.kmers_written']}")
+
+
+def _item(values, W, m=gbuild.MIN_LEVEL):
+    """Record planes of m records, one colour: the sorted keys `values`
+    (each key's last word; the others 0) at the front, sentinels after."""
+    keys = sops.sentinel((m,), W)
+    keys[:len(values)] = 0
+    keys[:len(values), W - 1] = torch.tensor(sorted(values))
+    covg = torch.zeros((m, 1), dtype=torch.int32)
+    covg[:len(values)] = 1
+    edges = torch.zeros((m, 1), dtype=torch.uint8)
+    return gbuild._record_planes(keys, covg, edges)
+
+
+@pytest.mark.parametrize("W", [1, 2])
+def test_fold_bytes_of_three_pushes(W):
+    """Three items of MIN_LEVEL records: the second push merges the first
+    two (2 x MIN_LEVEL records in, their 150 distinct keys out); the
+    third waits on the stack until result() merges it with the first
+    merge's item, cut back to MIN_LEVEL (2 x MIN_LEVEL in, 220 out).  A
+    record is 8W + 5 bytes at one colour."""
+    sets = [range(0, 100), range(50, 150), range(120, 220)]
+    fold = gbuild.RecordFold(W, 1)
+    for vals in sets:
+        fold.push(_item(list(vals), W), len(vals))
+    assert timing.COUNTERS["fold.bytes"] == (
+        2 * gbuild.MIN_LEVEL + 150) * (8 * W + 5)
+    planes, n = fold.result()
+    assert n == 220
+    assert timing.COUNTERS["fold.bytes"] == (
+        4 * gbuild.MIN_LEVEL + 150 + 220) * (8 * W + 5)
+
+
+def test_table_keys_counts_a_table_built_not_a_cache_hit():
+    keys = sops.sentinel((64,), 2)
+    keys[:40, 0] = 0
+    keys[:40, 1] = torch.arange(1, 81, 2)
+    hashidx.get_index32_for(keys)
+    assert timing.COUNTERS["table.keys"] == 40
+    hashidx.get_index32_for(keys)           # the cached table
+    assert timing.COUNTERS["table.keys"] == 40
+    hashidx.get_index32_for(keys.clone())   # another tensor: built again
+    assert timing.COUNTERS["table.keys"] == 80
