@@ -40,7 +40,10 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    beside it the plain bucket-row gather (lookup_planar) and the
    sort-merge joins (lookup_join, variants lax and mp) are timed; then
    on tables crowded by a forced small b_bits, where probes chain over
-   many rows and past the last row;
+   many rows and past the last row.  The table build on the card
+   (build_table32_fused) runs at clean's raw tables (16.4M keys at W=1,
+   24.8M at W=2), every word held to numpy's build_table32, timed beside
+   its byte bound and the numpy build;
 4a. ingest: the native sequence reader is built with g++ and zlib (a
    failure is fatal), then the E. coli FASTQ below is read through the
    Python reader and through the native reader without and with
@@ -63,10 +66,11 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    genome's own kmers;
 4b. the graph path on that .ctx: `mctx-torch clean -T -U`, then
    `mctx-torch unitigs` of the cleaned graph, each of which must launch
-   the lookup kernel; the cleaned graph must be a subset of the raw one
+   the lookup kernel and build its table on the card (the table kernel,
+   the counter `table.card`); the cleaned graph must be a subset of the raw one
    with its coverage, hold every kmer its edges point at, and be smaller;
    the unitigs' kmers must be the cleaned kmer set, each once.  Prints
-   each command's wall time and its split (table build on the host,
+   each command's wall time and its split (table build on the card,
    adjacency, pointer doubling, extraction), the cleaning threshold and
    the genome and non-genome kmers kept;
 4c. `graph/kmer_occur.build_kograph` of that raw graph against its
@@ -1145,6 +1149,56 @@ def phase_lookup(torch, results):
     torch.cuda.empty_cache()
 
 
+# clean's raw tables: the E. coli graph at k=31, K. pneumoniae's at k=61
+TABLE_KEYS = ((1, 16_400_000), (2, 24_800_000))
+
+
+def phase_table(torch, results):
+    """The 128-byte-row table built on the card against numpy's
+    build_table32 at clean's raw tables: every word equal (the error is
+    the count of words that differ), the card's time beside its byte bound
+    (the table written once, the keys read once) and numpy's."""
+    from mccortex_tpu_torch.ops.kernels import lookup
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    for W, n in TABLE_KEYS:
+        # valid random keys in no particular order: both builds place them
+        # by store row whatever the order, and a repeat would be placed
+        # twice by both
+        keys_np = rng.integers(0, 1 << 62, size=(n, W), dtype=np.uint64)
+        t0 = time.perf_counter()
+        want, wb = lookup.build_table32(keys_np)
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        keys = torch.from_numpy(keys_np.view(np.int64)).to(dev)
+        table, bb, rounds = lookup.build_table32_fused(keys)
+        torch.cuda.synchronize()
+        got = table.cpu().numpy().view(np.uint32)
+        if bb != wb or got.shape != want.shape:
+            fail(f"table W={W}: 2^{bb} rows on the card, 2^{wb} in numpy")
+        err = int((got != want).sum())
+        if err:
+            fail(f"table W={W}: {err} words differ from build_table32's")
+        del got, want, table
+        ms = time_ms(torch, lambda: lookup.build_table32_fused(keys), 5)
+        entry = row(err, ms, numpy_ms, (1 << bb) * 128 + keys_np.nbytes,
+                    n * W * 20)
+        print(f"table W={W}: {n} keys, 2^{bb} rows, {rounds} rounds: exact; "
+              f"card {ms:.4f} ms (bound {entry['bound_ms']:.4f} ms by "
+              f"{entry['bound_by']}), numpy {numpy_ms:.1f} ms")
+        if W == 1:
+            results["table"] = dict(entry, shape=f"W=1, {n} keys",
+                                    rounds=rounds)
+        else:
+            results["table"].update({f"w{W}_shape": f"{n} keys",
+                                     f"w{W}_ms": ms,
+                                     f"w{W}_bound_ms": entry["bound_ms"],
+                                     f"w{W}_numpy_ms": numpy_ms,
+                                     f"w{W}_rounds": rounds})
+        del keys, keys_np
+        torch.cuda.empty_cache()
+
+
 def run_cli(argv):
     """The port's CLI entry point in-process; returns its stderr."""
     from mccortex_tpu_torch.cli.main import main
@@ -1559,7 +1613,7 @@ def phase_graph_path(torch, tmp, card, raw, genome):
 
     cln = os.path.join(tmp, "clean.ctx")
     fa = os.path.join(tmp, "unitigs.fa")
-    walls, lookups = {}, 0
+    walls, lookups, tables = {}, 0, 0
     for name, argv in (("clean", ["clean", "-T", "-U", "-o", cln, raw]),
                        ("unitigs", ["unitigs", "-o", fa, cln])):
         _build.LAUNCHES.clear()
@@ -1570,7 +1624,11 @@ def phase_graph_path(torch, tmp, card, raw, genome):
         print(f"launches in mctx-torch {name}: {json.dumps(launched)}")
         if launched.get("lookup", 0) <= 0:
             fail(f"mctx-torch {name} never launched the lookup kernel")
+        if launched.get("table", 0) <= 0 or \
+                not re.search(r"\btable\.card [1-9]", time_split(log)):
+            fail(f"mctx-torch {name} did not build its table on the card")
         lookups += launched["lookup"]
+        tables += launched["table"]
         print(f"graph path on {card}: mctx-torch {name} wall "
               f"{walls[name]:.3f}s; split: {time_split(log)}")
         if name == "clean":
@@ -1597,7 +1655,7 @@ def phase_graph_path(torch, tmp, card, raw, genome):
           f"{in_genome} genome kmers kept of {len(gk)}, "
           f"{len(ck) - in_genome} non-genome kmers kept; {nu} unitigs "
           f"partition the cleaned kmers exactly; every edge closed")
-    return lookups
+    return lookups, tables
 
 
 def phase_kograph(torch, raw, genome, gfa):
@@ -3814,6 +3872,8 @@ def main():
     del shapes
     torch.cuda.empty_cache()
     phase_lookup(torch, results)
+    elapsed("3 lookup")
+    phase_table(torch, results)
     elapsed("3 kernels")
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3823,7 +3883,7 @@ def main():
         phase_paired(torch, tmp, card, genome, reads)
         elapsed("4 build")
         # 4b. clean and unitigs on its graph
-        lookups = phase_graph_path(torch, tmp, card, raw, genome)
+        lookups, tables = phase_graph_path(torch, tmp, card, raw, genome)
         elapsed("4b")
         # 4c. the reference-position index of that graph
         phase_kograph(torch, raw, genome, os.path.join(tmp, "genome.fa"))
@@ -3873,7 +3933,8 @@ def main():
     # from bubbles, breakpoints, vcfcov and popbubbles, from server and
     # from the sharded lookups (the sharded build's launches stand beside
     # the main build's as launches_sharded), the walk kernel from the
-    # gap-filled thread of 4e
+    # gap-filled thread of 4e, the table kernel from clean + unitigs (a
+    # launch a round)
     launches = {"frontend": by_engine["lax"]["frontend"],
                 "segreduce": by_engine["lax"]["segreduce"],
                 "mergepath": by_engine["lax"]["mergepath"],
@@ -3883,8 +3944,10 @@ def main():
                 "bitonic_blocksort": by_engine["mp"]["bitonic_blocksort"],
                 "bitonic_tail": by_engine["bitonic"]["bitonic_tail"],
                 "bitonic_butterfly": by_engine["bitonic"]["bitonic_butterfly"],
-                "walk": walks_4e}
-    sources = {"mergelevel": "mergepath", "bitonic_blocksort": "bitonic",
+                "walk": walks_4e,
+                "table": tables}
+    sources = {"table": "lookup",
+               "mergelevel": "mergepath", "bitonic_blocksort": "bitonic",
                "bitonic_tail": "bitonic", "bitonic_butterfly": "bitonic"}
     replaces = {
         "frontend": "mccortex_tpu/ops/pallas/frontend.py:203",
@@ -3896,7 +3959,10 @@ def main():
         "bitonic_tail": "mccortex_tpu/ops/pallas/bitonic.py:141",
         "bitonic_butterfly": "mccortex_tpu/ops/pallas/bitonic.py:186",
         # no Pallas kernel: the JAX walk_linked is XLA under lax.while_loop
-        "walk": "none (mccortex_tpu/links/walk.py walk_linked)"}
+        "walk": "none (mccortex_tpu/links/walk.py walk_linked)",
+        # no Pallas kernel: the JAX package builds its table in numpy
+        "table": "none (mccortex_tpu/ops/pallas/lookup.py build_table128, "
+                 "host numpy)"}
     # segreduce: one call an epoch (as many as front-end calls) and one a
     # merge (as many as merge-path calls) under lax
     lax = by_engine["lax"]

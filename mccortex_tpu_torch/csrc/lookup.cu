@@ -6,7 +6,8 @@
 // all happen here, so the kernel reads the query words and the table and
 // writes idx and found, nothing else.
 //
-// Table (built on the host, ops/kernels/lookup.py): B = 2^b rows of R
+// Table (ops/kernels/lookup.py; the 128-byte-row table of CUDA keys built by
+// mctx_table32 below, that of CPU keys in numpy): B = 2^b rows of R
 // uint32, R = 32 (build_table32: one 128-byte line of device memory, the
 // table the port uses) or R = 128 (build_table128: the reference's 128-lane
 // row).  A row holds S = R / (2W+1) slots, plane-major
@@ -299,5 +300,417 @@ extern "C" int mctx_lookup(const void* queries, const void* table, void* idx,
       return (int)launch_w<128>(queries, table, idx, found, Q, W, b_bits, st);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The 128-byte-row table built on the card: ops/kernels/lookup.build_table32,
+// byte for byte.
+//
+// Replaces no TPU kernel: the JAX package builds its table on the host in
+// numpy, and so did the port (build_table32, which stays as the CPU path and
+// the oracle), after copying every live key to the host and before copying
+// the table back.
+//
+// Rule (build_table32's): a key's home row is splitmix64-fold(key) >>
+// (64 - b).  A row takes its own keys in store-row order from slot 0; the
+// keys it cannot take move to the next row (modulo B) and are placed there
+// in the next round, after what that row holds, in store-row order; rounds
+// repeat until no key is left.  In round t a row receives keys from one row
+// only, the row before it, and those come sorted: so a round is a list of
+// segments (row, sorted store rows), one a row at most, and what a row cannot
+// take is the tail of its segment, which goes on to the next row as it is.
+//
+// Bound: device memory bytes.  The table is written once (B x 128 bytes,
+// empty words included) and the keys read once (8W bytes a key); at the
+// E. coli graph's 16.4M raw kmers that is 537 + 131 MB, 0.2 ms at 3.35 TB/s.
+// The counting sort below adds about 24 bytes a key of scratch traffic and
+// one random 8W-byte read of each key's words when its row is written.
+//
+// Design, bandwidth first, no atomics deciding a slot:
+//   * count: a thread a key hashes it, writes its home row and takes a rank
+//     in the row's histogram (an atomic add, whose order does not matter).
+//   * offsets: an exclusive scan of the histogram (tile sums, one block
+//     scanning them, each tile's own scan).
+//   * scatter: each key's store row into its row's bucket at offset + rank.
+//   * place: a warp writes 32 consecutive rows; lane l sorts its row's store
+//     rows in registers (a 16-wide sorting network; a row with more keys,
+//     which hashing makes rare, sorts its bucket in place), takes the first S,
+//     gathers their words and builds the whole row, empty words included, in
+//     a 4 KB stage (word j of row q at ((j + q) & 31): no bank conflicts);
+//     the warp then writes each row as one 128-byte line.  No separate fill
+//     of empty words goes over the table.  The sorted tail of a row with more
+//     than S keys becomes a segment of the next round (row + 1, its bucket
+//     tail), appended to a list by one atomic add a warp.
+//   * chain (the later rounds, one launch each): a thread a segment reads
+//     its row's fill from the row-index plane (slots fill from the front, and
+//     no store row is 0xFFFFFFFF), writes the keys that fit after it and
+//     passes the rest on.  The host reads the list's length, one word, after
+//     each round and stops at 0.  Round 1 leaves ~0.1 % of the keys at W = 1
+//     and ~1.6 % at W = 2, so the later rounds are small.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kScanItems = 16;                     // histogram words a thread
+constexpr int kScanTile = kThreads * kScanItems;   // 4096 rows a block
+constexpr int kSortCap = 16;                       // a row sorted in registers
+
+// exclusive prefix of v over the block's threads, in thread order; total is
+// the block's sum.  sums holds kThreads / 32 words of shared memory.
+__device__ __forceinline__ uint32_t block_exclusive(uint32_t v, uint32_t* sums,
+                                                    uint32_t& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) sums[warp] = x;
+  __syncthreads();
+  uint32_t before = 0;
+  total = 0;
+#pragma unroll
+  for (int k = 0; k < kThreads / 32; ++k) {
+    const uint32_t s = sums[k];
+    if (k < warp) before += s;
+    total += s;
+  }
+  __syncthreads();                      // sums is free for the next call
+  return before + x - v;
+}
+
+// a segment (row, start in the bucket array, length) for each lane that has
+// one, appended to desc by one atomic add a warp; the whole warp calls it
+__device__ __forceinline__ void append_segment(bool want, uint32_t row,
+                                               uint32_t start, uint32_t len,
+                                               uint32_t* desc,
+                                               uint32_t* ndesc) {
+  const unsigned m = __ballot_sync(kFull, want);
+  if (m == 0) return;
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(m) - 1;
+  uint32_t base = 0;
+  if (lane == leader) base = atomicAdd(ndesc, (uint32_t)__popc(m));
+  base = __shfl_sync(kFull, base, leader);
+  if (want) {
+    const uint32_t at = base + (uint32_t)__popc(m & ((1u << lane) - 1u));
+    desc[3 * (size_t)at] = row;
+    desc[3 * (size_t)at + 1] = start;
+    desc[3 * (size_t)at + 2] = len;
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+    t32_count(const uint64_t* __restrict__ keys, int n, int b_bits,
+              uint32_t* __restrict__ cnt, uint32_t* __restrict__ home,
+              uint32_t* __restrict__ rank) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const uint64_t* key = keys + (size_t)i * W;
+  uint64_t h = splitmix64(key[0]);      // seed 0, as the lookup
+#pragma unroll
+  for (int w = 1; w < W; ++w) h = splitmix64(h ^ key[w]);
+  const uint32_t r = (uint32_t)(h >> (64 - b_bits));
+  home[i] = r;
+  rank[i] = atomicAdd(cnt + r, 1u);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    t32_tile_sums(const uint32_t* __restrict__ cnt, uint32_t B,
+                  uint32_t* __restrict__ part) {
+  __shared__ uint32_t sums[kThreads / 32];
+  const size_t tile = (size_t)blockIdx.x * kScanTile;
+  uint32_t s = 0;
+#pragma unroll
+  for (int j = 0; j < kScanItems; ++j) {
+    const size_t r = tile + (size_t)j * kThreads + threadIdx.x;
+    if (r < B) s += cnt[r];
+  }
+  uint32_t total;
+  block_exclusive(s, sums, total);
+  if (threadIdx.x == 0) part[blockIdx.x] = total;
+}
+
+// the tile sums scanned in place by one block
+__global__ void __launch_bounds__(kThreads)
+    t32_scan_tiles(uint32_t* __restrict__ part, int tiles) {
+  __shared__ uint32_t sums[kThreads / 32];
+  uint32_t carry = 0;
+  for (int base = 0; base < tiles; base += kThreads) {
+    const int i = base + threadIdx.x;
+    const uint32_t v = i < tiles ? part[i] : 0u;
+    uint32_t total;
+    const uint32_t ex = block_exclusive(v, sums, total);
+    if (i < tiles) part[i] = carry + ex;
+    carry += total;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    t32_offsets(const uint32_t* __restrict__ cnt, uint32_t B,
+                const uint32_t* __restrict__ part, uint32_t* __restrict__ off) {
+  __shared__ uint32_t sums[kThreads / 32];
+  const size_t first = (size_t)blockIdx.x * kScanTile +
+                       (size_t)threadIdx.x * kScanItems;
+  uint32_t c[kScanItems];
+  uint32_t s = 0;
+#pragma unroll
+  for (int j = 0; j < kScanItems; ++j) {
+    c[j] = first + j < B ? cnt[first + j] : 0u;
+    s += c[j];
+  }
+  uint32_t total;
+  uint32_t run = part[blockIdx.x] + block_exclusive(s, sums, total);
+#pragma unroll
+  for (int j = 0; j < kScanItems; ++j) {
+    if (first + j < B) off[first + j] = run;
+    run += c[j];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    t32_scatter(const uint32_t* __restrict__ home,
+                const uint32_t* __restrict__ rank, int n,
+                const uint32_t* __restrict__ off,
+                uint32_t* __restrict__ bucket) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < n) bucket[off[home[i]] + rank[i]] = (uint32_t)i;
+}
+
+// ascending bitonic network over N (a power of two) registers
+template <int N>
+__device__ __forceinline__ void sort_regs(uint32_t (&v)[N]) {
+#pragma unroll
+  for (int k = 2; k <= N; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int l = i ^ j;
+        if (l > i) {
+          const uint32_t lo = min(v[i], v[l]), hi = max(v[i], v[l]);
+          const bool up = (i & k) == 0;
+          v[i] = up ? lo : hi;
+          v[l] = up ? hi : lo;
+        }
+      }
+    }
+  }
+}
+
+// round 1: every row written whole, its own keys in store-row order
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+    t32_place(const uint64_t* __restrict__ keys,
+              const uint32_t* __restrict__ cnt,
+              const uint32_t* __restrict__ off, uint32_t* __restrict__ bucket,
+              int b_bits, uint32_t* __restrict__ table,
+              uint32_t* __restrict__ desc, uint32_t* __restrict__ ndesc) {
+  constexpr int S = 32 / (2 * W + 1);
+  __shared__ uint32_t stages[kThreads / 32][32 * 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const uint32_t B = 1u << b_bits;
+  const uint32_t r0 = ((uint32_t)blockIdx.x * (kThreads / 32) + warp) * 32u;
+  if (r0 >= B) return;                  // the same for the whole warp
+  const uint32_t r = r0 + lane;
+  const bool mine = r < B;
+  const uint32_t c = mine ? cnt[r] : 0u;
+  const uint32_t o = mine ? off[r] : 0u;
+  uint32_t* seg = bucket + o;
+
+  uint32_t v[kSortCap];
+  const bool fast = c <= (uint32_t)kSortCap;
+  if (fast) {
+#pragma unroll
+    for (int j = 0; j < kSortCap; ++j) v[j] = (uint32_t)j < c ? seg[j] : kEmpty;
+    sort_regs(v);
+  } else {                              // rare: sort the bucket in place
+    for (uint32_t a = 1; a < c; ++a) {
+      const uint32_t x = seg[a];
+      uint32_t b = a;
+      for (; b > 0 && seg[b - 1] > x; --b) seg[b] = seg[b - 1];
+      seg[b] = x;
+    }
+  }
+
+  uint32_t* stage = stages[warp];
+  uint32_t* row = stage + lane * 32;
+#pragma unroll
+  for (int t = 0; t < S; ++t) {
+    const bool placed = (uint32_t)t < c;
+    const uint32_t id = placed ? (fast ? v[t] : seg[t]) : kEmpty;
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const uint64_t x = placed ? keys[(size_t)id * W + i] : ~0ull;
+      row[((2 * i) * S + t + lane) & 31] = (uint32_t)(x >> 32);
+      row[((2 * i + 1) * S + t + lane) & 31] = (uint32_t)x;
+    }
+    row[(2 * W * S + t + lane) & 31] = id;
+  }
+#pragma unroll
+  for (int j = (2 * W + 1) * S; j < 32; ++j) row[(j + lane) & 31] = kEmpty;
+
+  // what the row cannot take goes on to the next row, sorted
+  const bool over = c > (uint32_t)S;
+  if (over && fast) {
+#pragma unroll
+    for (int t = S; t < kSortCap; ++t) {
+      if ((uint32_t)t < c) seg[t] = v[t];
+    }
+  }
+  append_segment(over, (r + 1u) & (B - 1u), o + S, c - S, desc, ndesc);
+  __syncwarp();
+
+  // the warp's rows out, one 128-byte line an instruction
+#pragma unroll 4
+  for (int q = 0; q < 32; ++q) {
+    if (r0 + q < B) {
+      table[(size_t)(r0 + q) * 32 + lane] = stage[q * 32 + ((lane + q) & 31)];
+    }
+  }
+}
+
+// a later round: a thread a segment
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+    t32_chain(const uint64_t* __restrict__ keys,
+              const uint32_t* __restrict__ bucket,
+              const uint32_t* __restrict__ desc_in, int m, int b_bits,
+              uint32_t* __restrict__ table, uint32_t* __restrict__ desc_out,
+              uint32_t* __restrict__ ndesc_out) {
+  constexpr int S = 32 / (2 * W + 1);
+  const int d = blockIdx.x * kThreads + threadIdx.x;
+  if (d - (int)(threadIdx.x & 31) >= m) return;  // the same for the warp
+  const bool mine = d < m;
+  uint32_t row = 0, start = 0, len = 0;
+  if (mine) {
+    row = desc_in[3 * (size_t)d];
+    start = desc_in[3 * (size_t)d + 1];
+    len = desc_in[3 * (size_t)d + 2];
+  }
+  uint32_t* line = table + (size_t)row * 32;
+  uint32_t fill = 0;
+  if (mine) {
+#pragma unroll
+    for (int t = 0; t < S; ++t) fill += line[2 * W * S + t] != kEmpty;
+  }
+  const uint32_t take = min(len, (uint32_t)S - fill);
+  for (uint32_t j = 0; j < take; ++j) {
+    const uint32_t id = bucket[start + j];
+    const uint32_t t = fill + j;
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const uint64_t x = keys[(size_t)id * W + i];
+      line[(2 * i) * S + t] = (uint32_t)(x >> 32);
+      line[(2 * i + 1) * S + t] = (uint32_t)x;
+    }
+    line[2 * W * S + t] = id;
+  }
+  const uint32_t B = 1u << b_bits;
+  append_segment(len > take, (row + 1u) & (B - 1u), start + take, len - take,
+                 desc_out, ndesc_out);
+}
+
+template <int W>
+cudaError_t table32_first(const void* keys, void* table, void* cnt, void* off,
+                          void* part, void* home, void* rank, void* bucket,
+                          void* desc, void* ndesc, int n, int b_bits,
+                          cudaStream_t st) {
+  const uint32_t B = 1u << b_bits;
+  const int tiles = (int)((B + kScanTile - 1) / kScanTile);
+  const int key_blocks = (n + kThreads - 1) / kThreads;
+  cudaError_t e = cudaMemsetAsync(cnt, 0, (size_t)B * 4, st);
+  if (e == cudaSuccess) e = cudaMemsetAsync(ndesc, 0, 4, st);
+  if (e != cudaSuccess) return e;
+  if (n > 0) {
+    t32_count<W><<<key_blocks, kThreads, 0, st>>>(
+        (const uint64_t*)keys, n, b_bits, (uint32_t*)cnt, (uint32_t*)home,
+        (uint32_t*)rank);
+  }
+  t32_tile_sums<<<tiles, kThreads, 0, st>>>((const uint32_t*)cnt, B,
+                                            (uint32_t*)part);
+  t32_scan_tiles<<<1, kThreads, 0, st>>>((uint32_t*)part, tiles);
+  t32_offsets<<<tiles, kThreads, 0, st>>>((const uint32_t*)cnt, B,
+                                          (const uint32_t*)part,
+                                          (uint32_t*)off);
+  if (n > 0) {
+    t32_scatter<<<key_blocks, kThreads, 0, st>>>(
+        (const uint32_t*)home, (const uint32_t*)rank, n, (const uint32_t*)off,
+        (uint32_t*)bucket);
+  }
+  const int row_blocks = (int)((B + kThreads - 1) / kThreads);
+  t32_place<W><<<row_blocks, kThreads, 0, st>>>(
+      (const uint64_t*)keys, (const uint32_t*)cnt, (const uint32_t*)off,
+      (uint32_t*)bucket, b_bits, (uint32_t*)table, (uint32_t*)desc,
+      (uint32_t*)ndesc);
+  return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t table32_round(const void* keys, void* table, const void* bucket,
+                          const void* desc_in, void* desc_out,
+                          void* ndesc_out, int m, int b_bits,
+                          cudaStream_t st) {
+  cudaError_t e = cudaMemsetAsync(ndesc_out, 0, 4, st);
+  if (e != cudaSuccess) return e;
+  t32_chain<W><<<(m + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      (const uint64_t*)keys, (const uint32_t*)bucket,
+      (const uint32_t*)desc_in, m, b_bits, (uint32_t*)table,
+      (uint32_t*)desc_out, (uint32_t*)ndesc_out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Round 1 of the table of the live keys (n, W) uint64, contiguous.  table:
+// (2^b_bits, 32) uint32, every word written.  Scratch, uint32: cnt and off
+// 2^b_bits each, part ceil(2^b_bits / 4096), home, rank and bucket n each,
+// desc 3 x (n / (S + 1) + 1), ndesc 1 (the number of segments left for round
+// 2).  1 <= W <= 4, 1 <= b_bits <= 30, 0 <= n <= S x 2^b_bits.
+extern "C" int mctx_table32(const void* keys, void* table, void* cnt,
+                            void* off, void* part, void* home, void* rank,
+                            void* bucket, void* desc, void* ndesc, int n,
+                            int W, int b_bits, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (b_bits < 1 || b_bits > 30 || n < 0) return (int)cudaErrorInvalidValue;
+  switch (W) {
+    case 1: return (int)table32_first<1>(keys, table, cnt, off, part, home,
+                                         rank, bucket, desc, ndesc, n, b_bits,
+                                         st);
+    case 2: return (int)table32_first<2>(keys, table, cnt, off, part, home,
+                                         rank, bucket, desc, ndesc, n, b_bits,
+                                         st);
+    case 3: return (int)table32_first<3>(keys, table, cnt, off, part, home,
+                                         rank, bucket, desc, ndesc, n, b_bits,
+                                         st);
+    case 4: return (int)table32_first<4>(keys, table, cnt, off, part, home,
+                                         rank, bucket, desc, ndesc, n, b_bits,
+                                         st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// A later round: the m > 0 segments of desc_in placed after their rows' fill,
+// what is left written to desc_out (room for m) and counted in ndesc_out.
+extern "C" int mctx_table32_round(const void* keys, void* table,
+                                  const void* bucket, const void* desc_in,
+                                  void* desc_out, void* ndesc_out, int m,
+                                  int W, int b_bits, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (b_bits < 1 || b_bits > 30 || m < 1) return (int)cudaErrorInvalidValue;
+  switch (W) {
+    case 1: return (int)table32_round<1>(keys, table, bucket, desc_in,
+                                         desc_out, ndesc_out, m, b_bits, st);
+    case 2: return (int)table32_round<2>(keys, table, bucket, desc_in,
+                                         desc_out, ndesc_out, m, b_bits, st);
+    case 3: return (int)table32_round<3>(keys, table, bucket, desc_in,
+                                         desc_out, ndesc_out, m, b_bits, st);
+    case 4: return (int)table32_round<4>(keys, table, bucket, desc_in,
+                                         desc_out, ndesc_out, m, b_bits, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

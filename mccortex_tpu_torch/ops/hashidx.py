@@ -17,8 +17,10 @@ kernel reads it too, but no lookup here builds it.)
 
 bucket(key) = kmer_hash(key) >> (64 - b_bits).  Empty slots hold
 0xFFFFFFFF, which no valid canonical kmer has in its top word (k odd).
-Tables are built on the host in numpy (as the JAX package does) and
-copied to the keys' device.  Either the host build grows b_bits until no
+The planar table is built on the host in numpy (as the JAX package
+does) and copied to the keys' device; the 128-byte-row table is built on
+the card for CUDA keys (kernels.lookup.build_table32_fused, the same
+bytes) and in numpy for CPU keys.  Either the build grows b_bits until no
 bucket overflows (planar), or the probe follows a full row into the next
 one (128-byte rows); both ways the index is exact.
 
@@ -171,16 +173,38 @@ def _live_host_keys(keys: torch.Tensor) -> np.ndarray:
     return keys_np[:int(live.sum())]
 
 
+def _host_build(build):
+    """A table build of the live keys copied to the host (numpy), the
+    table copied back to the keys' device."""
+    def run(keys: torch.Tensor):
+        live = _live_host_keys(keys)
+        table, b_bits = build(live)
+        return (torch.from_numpy(table.view(np.int32)).to(keys.device),
+                b_bits, len(live))
+    return run
+
+
+def _build32(keys: torch.Tensor):
+    """The 128-byte-row table: on the card for CUDA keys (the live count
+    the one word that comes to the host before the build), else numpy."""
+    from .kernels import lookup as klookup
+    if keys.device.type != "cuda":
+        return _host_build(klookup.build_table32)(keys)
+    n = int((~sops.is_sentinel(keys)).sum())
+    table, b_bits, rounds = klookup.build_table32_fused(keys[:n])
+    count("table.card")
+    count("table.rounds", rounds)
+    return table, b_bits, n
+
+
 def _cached(cache: dict, keys: torch.Tensor, build):
     ck = (id(keys), tuple(keys.shape))
     hit = cache.get(ck)
     if hit is not None and hit[0] is keys:
         return hit[1], hit[2]
     with span("table", keys.device):
-        live = _live_host_keys(keys)
-        table, b_bits = build(live)
-        table_t = torch.from_numpy(table.view(np.int32)).to(keys.device)
-    count("table.keys", len(live))      # a cache hit builds and counts none
+        table_t, b_bits, n = build(keys)
+    count("table.keys", n)              # a cache hit builds and counts none
     while len(cache) >= CACHE_ENTRIES:
         cache.pop(next(iter(cache)))
     cache[ck] = (keys, table_t, b_bits)
@@ -190,14 +214,13 @@ def _cached(cache: dict, keys: torch.Tensor, build):
 def get_index_for(keys: torch.Tensor):
     """Cached (planar table on keys' device, b_bits) for a key tensor.
     Keys beyond the live prefix are sentinels and left out."""
-    return _cached(_cache_store, keys, build_table)
+    return _cached(_cache_store, keys, _host_build(build_table))
 
 
 def get_index32_for(keys: torch.Tensor):
     """Cached (128-byte-row table on keys' device, b_bits) for the lookup
-    kernel."""
-    from .kernels import lookup as klookup
-    return _cached(_cache32, keys, klookup.build_table32)
+    kernel, built on the keys' device."""
+    return _cached(_cache32, keys, _build32)
 
 
 def _pick_impl(n_store: int, n_queries: int, device="cpu") -> str:
@@ -228,7 +251,7 @@ def _chunked(fn, q: torch.Tensor):
 def lookup(keys: torch.Tensor, queries: torch.Tensor):
     """(idx int32, found bool) per query key (..., W) against the sorted
     key tensor `keys` (N, W): idx is the store row when found, else 0.
-    Builds or fetches the table for `keys` on the host."""
+    Builds or fetches the table for `keys`."""
     W = keys.shape[1]
     qshape = queries.shape[:-1]
     q = queries.reshape(-1, W)

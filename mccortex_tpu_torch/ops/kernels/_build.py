@@ -15,7 +15,8 @@ caller's stream, allocates nothing and returns `cudaGetLastError()`;
 `LAUNCHES` counts, per kernel, the wrapper calls that launched it.  A
 source file may hold several kernels, each counted under its own name:
 mergepath.cu holds `mergepath` and `mergelevel`, bitonic.cu holds
-`bitonic_blocksort`, `bitonic_tail` and `bitonic_butterfly`.
+`bitonic_blocksort`, `bitonic_tail` and `bitonic_butterfly`, lookup.cu
+holds `lookup` and `table` (one count a round of a table build).
 """
 
 from __future__ import annotations

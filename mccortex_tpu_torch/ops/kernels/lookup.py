@@ -1,7 +1,8 @@
 """Batched hash-bucket lookup: (Q, W) kmer keys -> (store row, found).
 
 Counterpart of mccortex_tpu/ops/pallas/lookup.py (`build_table128`,
-`lookup_fused`); kernel in csrc/lookup.cu.
+`lookup_fused`); kernels in csrc/lookup.cu (the probe, and the build of
+the card's table).
 
 Two table geometries, one layout.  A table is B = 2**b_bits rows of R
 uint32; a row holds S = R // (2W+1) slots, plane-major
@@ -13,7 +14,10 @@ kmer_hash(key) >> (64 - b_bits).
       line of device memory, S = 10, 6, 4, 3 slots at W = 1..4, filled
       to about one half.  A row that is full sends its further keys to
       the next row (modulo B), so the table never has to grow to fit
-      the fullest bucket.  `hashidx.lookup` uses this one.
+      the fullest bucket.  `hashidx.lookup` uses this one; for CUDA keys
+      it is built on the card (`build_table32_fused`, csrc/lookup.cu
+      `mctx_table32`), byte for byte, numpy's build_table32 being its
+      plain version.
   R = 128 (`build_table128`): the JAX package's table, byte for byte
       (a 128-lane vector of the TPU per bucket, filled to 0.35, grown
       until no bucket overflows).  Kept as the copy of the reference's
@@ -98,6 +102,17 @@ def build_table128(keys_np: np.ndarray, occ: float = 0.35,
     return table, b_bits
 
 
+def bits32(n: int, S: int, b_bits: int | None = None) -> int:
+    """build_table32's b_bits for n keys at S slots a row: the smallest
+    with a mean fill of at most OCC32 when none is given, then raised only
+    as far as the keys need to fit (n <= B * S)."""
+    if b_bits is None:
+        b_bits = max(1, int(np.ceil(np.log2(max(1.0, n / (S * OCC32))))))
+    while n > (S << b_bits):
+        b_bits += 1
+    return b_bits
+
+
 def build_table32(keys_np: np.ndarray, b_bits: int | None = None):
     """Build the 128-byte-row table from live (n, W) uint64 keys (host
     numpy).  Returns (table (B, 32) uint32, b_bits).
@@ -111,10 +126,7 @@ def build_table32(keys_np: np.ndarray, b_bits: int | None = None):
     so a key stored d rows from home has d full rows before it."""
     n, W = keys_np.shape
     S = slots_for(W, ROW32)
-    if b_bits is None:
-        b_bits = max(1, int(np.ceil(np.log2(max(1.0, n / (S * OCC32))))))
-    while n > (S << b_bits):
-        b_bits += 1
+    b_bits = bits32(n, S, b_bits)
     B = 1 << b_bits
     table = np.full((B, ROW32), _EMPTY, np.uint32)
     fill = np.zeros(B, np.int64)
@@ -137,6 +149,68 @@ def build_table32(keys_np: np.ndarray, b_bits: int | None = None):
         todo = ((((row[~fits] + 1) & (B - 1)).astype(np.uint64)
                  << np.uint64(32)) | (todo[~fits] & low))
     return table, b_bits
+
+
+def build_table32_fused(keys: torch.Tensor, b_bits: int | None = None):
+    """build_table32 on the card: the table of the live keys (n, W) int64
+    words on a CUDA device, the same bytes as build_table32's, built by
+    csrc/lookup.cu (`mctx_table32`, then `mctx_table32_round` for each
+    later round).  Returns (table (2**b_bits, 32) int32 on the keys'
+    device, b_bits, rounds).  Only the number of keys left after each
+    round, one word, comes back to the host.  The CPU builds with
+    build_table32 (numpy), its plain version: a CPU tensor is refused."""
+    if keys.dim() != 2 or keys.dtype != torch.int64 or \
+            not 1 <= keys.shape[1] <= MAX_W:
+        raise ValueError(f"keys must be (n, W) int64 words, 1 <= W <= "
+                         f"{MAX_W}")
+    if keys.device.type != "cuda":
+        raise ValueError(f"build_table32_fused takes CUDA keys, got "
+                         f"{keys.device}: build_table32 is the CPU build")
+    with torch.cuda.device(keys.device):
+        return _table32_launch(keys.contiguous(), b_bits)
+
+
+def _table32_launch(keys: torch.Tensor, b_bits: int | None):
+    """build_table32_fused's scratch and launches on the keys' device
+    (scripts/cuda_emul runs it on CPU tensors, the kernels built for the
+    CPU)."""
+    n, W = keys.shape
+    S = slots_for(W, ROW32)
+    b_bits = bits32(n, S, b_bits)
+    if n >= 1 << 31 or b_bits > 30:
+        raise ValueError(f"the table kernel takes fewer than 2**31 keys and "
+                         f"at most 2**30 rows, got {n} keys")
+    B = 1 << b_bits
+    dev = keys.device
+
+    def words(m):
+        return torch.empty(m, dtype=torch.int32, device=dev)
+
+    table = torch.empty((B, ROW32), dtype=torch.int32, device=dev)
+    # a row with more than S keys leaves one segment: at most n / (S + 1);
+    # a round never leaves more segments than it was given
+    segs, left = words(3 * (n // (S + 1) + 1)), words(1)
+    # histogram, offsets, tile sums; home row, rank and bucket of each key
+    scratch = [words(B), words(B), words(-(-B // 4096)), words(n), words(n)]
+    bucket = words(n)
+    first = _build.function("lookup", "mctx_table32", 10, 3)
+    rc = first(keys.data_ptr(), table.data_ptr(),
+               *[t.data_ptr() for t in scratch], bucket.data_ptr(),
+               segs.data_ptr(), left.data_ptr(), n, W, b_bits,
+               _build.stream_of(keys))
+    _build.check(rc, "table")
+    del scratch             # free for what this stream runs next
+    rounds, m = 1, int(left)
+    step = _build.function("lookup", "mctx_table32_round", 6, 3)
+    out = words(3 * m)
+    while m:
+        rc = step(keys.data_ptr(), table.data_ptr(), bucket.data_ptr(),
+                  segs.data_ptr(), out.data_ptr(), left.data_ptr(), m, W,
+                  b_bits, _build.stream_of(keys))
+        _build.check(rc, "table")
+        rounds, m = rounds + 1, int(left)
+        segs, out = out, segs
+    return table, b_bits, rounds
 
 
 def _probe_plain(table: torch.Tensor, queries: torch.Tensor, b_bits: int,

@@ -4,7 +4,8 @@
 // after another.  __syncthreads is a barrier over the block; a warp
 // shuffle, ballot or any is an exchange buffer per warp between two
 // barriers over its 32 threads; __shared__ is static (one block at a time);
-// __threadfence is a sequentially consistent fence.  Because blocks run in
+// __threadfence is a sequentially consistent fence; atomicAdd is a
+// std::atomic_ref add.  Because blocks run in
 // order, a block that waits on an earlier block's published state (the
 // look-back of a single-pass scan) always finds it there: such waits are
 // checked by reading the code, not here.
@@ -140,6 +141,12 @@ inline void emu_copy16(uint4* dst, const uint4* src) {
 
 template <class T>
 T __ldg(const T* p) { return *p; }
+template <class T>
+T atomicAdd(T* p, T v) { return std::atomic_ref<T>(*p).fetch_add(v); }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return cudaSuccess;
+}
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run CUDA kernels of mccortex_tpu_torch/csrc on the CPU, for their logic.
 
-    python scripts/cuda_emul/emulate.py [lookup] [bitonic] [tail] [mergepath]
-                                        [frontend] [segreduce] [walk]
+    python scripts/cuda_emul/emulate.py [lookup] [table] [bitonic] [tail]
+                                        [mergepath] [frontend] [segreduce]
+                                        [walk]
 
 A machine without nvcc or a GPU cannot compile or run a .cu.  This
 rewrites a source for g++ (the CUDA runtime header becomes cuda_emul.h,
@@ -10,7 +11,12 @@ rewrites a source for g++ (the CUDA runtime header becomes cuda_emul.h,
 ...)`, the cp.async statements become plain copies), builds it as a
 shared library with the same C entry points, calls those on numpy arrays
 and holds the results against the plain PyTorch versions: the lookup
-kernel on both row widths with forced chains, the tile sort at 1 to 9
+kernel on both row widths with forced chains, the table build through
+ops/kernels/lookup.py's own launcher against the numpy build_table32 byte
+for byte (tests/table_cases.py: W = 1 to 4, no key, one key, ragged sizes,
+chains that wrap past the last row, rows past the register sort, a table
+without an empty slot; as written and with the buckets' order reversed),
+the tile sort at 1 to 9
 key planes with ragged tiles and both direction rules, the tail on both
 spans with equal keys, the merge path and the merge levels (one a launch
 and fused) with ragged runs, heavy ties and windows at every alignment,
@@ -159,6 +165,60 @@ def check_lookup(tmp: str) -> None:
               f"{int(lookup.rows_read(tt, qt, bb, W).max())}", flush=True)
         if not ok:
             sys.exit(1)
+
+
+# Blocks run in order here and a block's threads nearly so, so the
+# histogram's atomic adds hand out ranks in store-row order and every
+# bucket comes out sorted already.  This variant counts the keys from the
+# last to the first, so that the buckets come out reversed and the sorts
+# and the sorted tails a row passes on are put to work, as the card's
+# arbitrary order of atomics does.
+REVERSED = ("const int i = blockIdx.x * kThreads + threadIdx.x;\n"
+            "  if (i >= n) return;\n  const uint64_t* key",
+            "const int i = n - 1 - (int)(blockIdx.x * kThreads + "
+            "threadIdx.x);\n  if (i < 0) return;\n  const uint64_t* key")
+
+
+def table_fns(tmp: str, reversed_ranks: bool = False) -> dict:
+    """The table build's two C entry points of csrc/lookup.cu, built for
+    the CPU, by symbol; `reversed_ranks`: the REVERSED variant."""
+    patch, tag = (REVERSED, "_rev") if reversed_ranks else ((), "")
+    return {"mctx_table32": build("lookup", tmp, 10, 3, "mctx_table32",
+                                  patch, tag),
+            "mctx_table32_round": build("lookup", tmp, 6, 3,
+                                        "mctx_table32_round", patch, tag)}
+
+
+def table_on_cpu(fns: dict, keys: np.ndarray, b_bits):
+    """lookup._table32_launch as it is, its launches the kernels compiled
+    for the CPU: (table as uint32, b_bits, rounds)."""
+    from mccortex_tpu_torch.ops.kernels import _build
+    saved = _build.function, _build.stream_of
+    _build.function = lambda name, symbol, *a: fns[symbol]
+    _build.stream_of = lambda t: None
+    try:
+        table, bb, rounds = lookup._table32_launch(
+            torch.from_numpy(keys.view(np.int64)), b_bits)
+    finally:
+        _build.function, _build.stream_of = saved
+    return table.numpy().view(np.uint32), bb, rounds
+
+
+def check_table(tmp: str) -> None:
+    import table_cases as tc
+    for variant in ("", " (ranks reversed)"):
+        fns = table_fns(tmp, bool(variant))
+        for label, (W, n, b_bits, extra) in tc.CASES.items():
+            keys = tc.keys_of(W, n, b_bits, extra)
+            want, wb = lookup.build_table32(keys, b_bits=b_bits)
+            got, gb, rounds = table_on_cpu(fns, keys, b_bits)
+            ok = gb == wb and np.array_equal(got, want) and \
+                rounds == tc.rounds_of(want, keys, wb)
+            print(f"table{variant} {label}: {len(keys)} keys, 2^{wb} rows, "
+                  f"{rounds} rounds: {'exact' if ok else 'MISMATCH'}",
+                  flush=True)
+            if not ok:
+                sys.exit(1)
 
 
 def check_bitonic(tmp: str) -> None:
@@ -441,11 +501,13 @@ def check_walk(tmp: str) -> None:
 
 
 def main() -> None:
-    which = sys.argv[1:] or ["lookup", "bitonic", "tail", "mergepath",
-                             "frontend", "segreduce", "walk"]
+    which = sys.argv[1:] or ["lookup", "table", "bitonic", "tail",
+                             "mergepath", "frontend", "segreduce", "walk"]
     with tempfile.TemporaryDirectory() as tmp:
         if "lookup" in which:
             check_lookup(tmp)
+        if "table" in which:
+            check_table(tmp)
         if "bitonic" in which:
             check_bitonic(tmp)
         if "tail" in which:
