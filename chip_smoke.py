@@ -36,10 +36,9 @@ and PyTorch built for CUDA.  Phases, each fatal on failure:
    with present, absent and sentinel queries, at a walker's batch (4096)
    and a bulk batch (Q = N), on the 128-byte-row table the port uses
    and on the reference-shaped 128-lane table (table bytes, rows read
-   per query and row bytes/s against the card's 3.35 TB/s for each);
-   beside it the plain bucket-row gather (lookup_planar) and the
-   sort-merge joins (lookup_join, variants lax and mp) are timed; then
-   on tables crowded by a forced small b_bits, where probes chain over
+   per query and row bytes/s against the card's 3.35 TB/s for each),
+   its answers held to the binary search in the sorted keys; then on
+   tables crowded by a forced small b_bits, where probes chain over
    many rows and past the last row.  The table build on the card
    (build_table32_fused) runs at clean's raw tables (16.4M keys at W=1,
    24.8M at W=2), every word held to numpy's build_table32, timed beside
@@ -1009,7 +1008,6 @@ def check_lookup(torch, label, lookup, table, b_bits, q, W):
 
 
 def phase_lookup(torch, results):
-    from mccortex_tpu_torch.ops import hashidx
     from mccortex_tpu_torch.ops import kmer as kops
     from mccortex_tpu_torch.ops import sorted as sops
     from mccortex_tpu_torch.ops.kernels import lookup
@@ -1028,18 +1026,15 @@ def phase_lookup(torch, results):
         t0 = time.perf_counter()
         t128, b128 = lookup.build_table128(keys_np)
         host128 = time.perf_counter() - t0
-        tplan, bplan = hashidx.build_table(keys_np)
         keys = on_card(keys_np, np.int64)
         # the table the port uses first, the reference-shaped one second
         tables = {32: (on_card(t32, np.int32), b32),
                   128: (on_card(t128, np.int32), b128)}
-        tplan = on_card(tplan, np.int32)
         print(f"lookup W={W}: store of {N_STORE} keys; 128-byte-row table "
               f"2^{b32} rows = {t32.nbytes} bytes, fill "
               f"{N_STORE / (lookup.slots_for(W, 32) << b32):.3f} (host build "
               f"{host32:.1f}s); 128-lane table 2^{b128} rows = {t128.nbytes} "
-              f"bytes (host build {host128:.1f}s); planar table 2^{bplan} "
-              f"rows")
+              f"bytes (host build {host128:.1f}s)")
         if t32.nbytes > t128.nbytes:
             fail(f"lookup W={W}: the 128-byte-row table is the larger one")
         del t32, t128
@@ -1073,20 +1068,13 @@ def phase_lookup(torch, results):
             hit = found.nonzero()[:, 0]
             if not torch.equal(keys[idx[hit].long()], q[hit]):
                 fail(f"lookup W={W} Q={Q}: a found row holds another key")
-            for other in (hashidx.lookup_planar(tplan, q, bplan, W),
-                          sops.lookup_join(keys, q),
-                          sops.lookup_join(keys, q, variant="mp")):
-                if not (torch.equal(other[0], idx) and
-                        torch.equal(other[1], found)):
-                    fail(f"lookup W={W} Q={Q}: planar or a join disagrees")
-            planar = time_ms(
-                torch, lambda: hashidx.lookup_planar(tplan, q, bplan, W), 5)
-            join = time_ms(torch, lambda: sops.lookup_join(keys, q), 3)
-            join_mp = time_ms(
-                torch, lambda: sops.lookup_join(keys, q, variant="mp"), 3)
-            print(f"lookup W={W} Q={Q}: {int(found.sum())} found; "
-                  f"lookup_planar {planar:.4f} ms, lookup_join {join:.4f} ms, "
-                  f"lookup_join mp {join_mp:.4f} ms")
+            b_idx, b_found = sops.lookup(keys, q)
+            if not (torch.equal(b_found, found) and
+                    torch.equal(b_idx[found], idx[found])):
+                fail(f"lookup W={W} Q={Q}: the binary search disagrees")
+            print(f"lookup W={W} Q={Q}: {int(found.sum())} found, as by the "
+                  f"binary search")
+            del b_idx, b_found
             if W == 1 and Q == N_STORE:
                 ks, qs = keys[:, 0] ^ SIGN, (q[:, 0] ^ SIGN).contiguous()
                 lib = time_ms(torch, lambda: torch.searchsorted(ks, qs), 5)
@@ -1101,7 +1089,7 @@ def phase_lookup(torch, results):
                     rows_named(torch, kops, q, rows, bb) * 32 * 4
                     + nbytes_of(q, idx, found), Q * (24 + 32), lib)
                 del ks, qs
-        del keys, tables, tplan, q, idx, found, timed, rows, table
+        del keys, tables, q, idx, found, timed, rows, table
         torch.cuda.empty_cache()
 
     # a table filled almost to the brim by a forced small b_bits: chains of
@@ -1111,7 +1099,7 @@ def phase_lookup(torch, results):
         # random keys, and some three rows' worth whose home is the last row
         pool = rng.integers(0, 1 << 62, size=(3 * S << bb, W),
                             dtype=np.uint64)
-        pool = pool[hashidx._hash_np(pool) >> np.uint64(64 - bb)
+        pool = pool[kops.kmer_hash_np(pool) >> np.uint64(64 - bb)
                     == (1 << bb) - 1]
         keys_np = np.unique(np.concatenate([pool, rng.integers(
             0, 1 << 62, size=(n, W), dtype=np.uint64)]), axis=0)
@@ -1126,14 +1114,15 @@ def phase_lookup(torch, results):
                     np.int64)
         idx, found, _err = check_lookup(torch, f"crowded table W={W}", lookup,
                                         table, bb, q, W)
-        want = sops.lookup_join(keys, q)
+        want = lookup.lookup_plain(table, q, bb, W)
         if not (torch.equal(idx, want[0]) and torch.equal(found, want[1])):
-            fail(f"crowded table W={W}: the kernel and the join disagree")
+            fail(f"crowded table W={W}: the kernel and the plain version "
+                 f"disagree")
         if not (bool(found[:n].all()) and torch.equal(
                 idx[:n], torch.arange(n, device=dev, dtype=torch.int32))):
             fail(f"crowded table W={W}: a stored key is not found in its row")
         rows = lookup.rows_read(table, q, bb, W)
-        home = hashidx._hash_np(keys_np) >> np.uint64(64 - bb)
+        home = kops.kmer_hash_np(keys_np) >> np.uint64(64 - bb)
         last = home == (1 << bb) - 1
         wrapped = int((rows[:n][torch.from_numpy(last).to(dev)] > 1).sum())
         if int(rows.max()) < 3 or wrapped == 0:
@@ -1141,7 +1130,7 @@ def phase_lookup(torch, results):
                  f"last row")
         print(f"lookup crowded table W={W}: {n} keys in 2^{bb} rows of {S} "
               f"slots (fill {n / (S << bb):.3f}), {q.shape[0]} queries: exact "
-              f"against plain and the join; "
+              f"against plain; "
               f"{float(rows[rows > 0].float().mean()):.3f} rows read per live "
               f"query, most {int(rows.max())}; {wrapped} keys of the last "
               f"row found past it")

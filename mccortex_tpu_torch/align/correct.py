@@ -38,6 +38,7 @@ from ..links import store as lstore
 from ..links import thread as lthread
 from ..links import walk as lwalk
 from ..utils import npkmer
+from ..utils.memo import Memo
 from ..utils.text import kmers_to_strings
 from ..utils.timing import span
 
@@ -175,22 +176,14 @@ def _two_way_meet(Lp, Rp, gap_max: int):
     return False, gap_len, app[0], app[1], pos[0], pos[1]
 
 
-_keys_host_cache: dict = {}
+_keys_host_copies = Memo()
 
 
 def _keys_host(g: gstore.DBGraph) -> np.ndarray:
-    """Host copy of g.keys as uint64, memoised on the key tensor (checked
-    with `is`, so a freed tensor's reused id never hits): the per-gap
-    bookkeeping reads a handful of rows thousands of times."""
-    ck = id(g.keys)
-    hit = _keys_host_cache.get(ck)
-    if hit is not None and hit[0] is g.keys:
-        return hit[1]
-    kh = g.keys.cpu().numpy().view(np.uint64)
-    if len(_keys_host_cache) > 4:
-        _keys_host_cache.clear()
-    _keys_host_cache[ck] = (g.keys, kh)
-    return kh
+    """Host copy of g.keys as uint64, memoised on the key tensor: the
+    per-gap bookkeeping reads a handful of rows thousands of times."""
+    return _keys_host_copies.get(
+        (g.keys,), lambda: g.keys.cpu().numpy().view(np.uint64))
 
 
 def _oriented_np(kk: np.ndarray, ors: np.ndarray, k: int) -> np.ndarray:

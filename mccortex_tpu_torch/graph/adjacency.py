@@ -4,7 +4,7 @@ mccortex_tpu/graph/adjacency.py.
 adj[4*v + n] = vertex (2*row + orient) reached from vertex v by
 appending base n, or -1 if that kmer is absent: built once per store
 with 8 batched lookups over every row (ops/hashidx.py, on a CUDA store
-the lookup kernel), then one gather per candidate.  Cached per key
+the lookup kernel), then one gather per candidate.  Memoised per key
 tensor.
 """
 
@@ -14,6 +14,7 @@ import torch
 
 from ..ops import hashidx
 from ..ops import kmer as kops
+from ..utils.memo import Memo
 from ..utils.timing import span
 from . import store as gstore
 
@@ -32,11 +33,6 @@ def _vertex_of(idx: torch.Tensor, found: torch.Tensor, o2: torch.Tensor):
         torch.int32)
 
 
-def lookup_chunked(sorted_keys: torch.Tensor, queries: torch.Tensor):
-    """Batched lookup through the hashed-bucket index (ops/hashidx.py)."""
-    return hashidx.lookup(sorted_keys, queries)
-
-
 def build_adjacency(keys: torch.Tensor, k: int) -> torch.Tensor:
     """adj flat (8N,) int32: adj[4*v + n] = next vertex from vertex v
     appending base n (v = 2*row + orient), -1 if absent."""
@@ -47,7 +43,7 @@ def build_adjacency(keys: torch.Tensor, k: int) -> torch.Tensor:
         for o in (0, 1):
             for n in range(4):
                 key2, o2 = _probe(keys, k, o, n)
-                j, found = lookup_chunked(keys, key2)
+                j, found = hashidx.lookup(keys, key2)
                 flat[o * 4 + n::8] = _vertex_of(j, found, o2)
     return flat
 
@@ -59,28 +55,19 @@ def adj_at(adj: torch.Tensor, v: torch.Tensor, n) -> torch.Tensor:
     return adj[v.to(torch.int64) * 4 + n.to(torch.int64)]
 
 
-_cache_store: dict = {}
+_adjacency = Memo()
 
 
 def cached_adjacency_for(keys: torch.Tensor, k: int):
-    """The cached adjacency for this key tensor, or None (never builds)."""
-    hit = _cache_store.get((id(keys), keys.shape[0], k))
-    if hit is not None and hit[0] is keys:
-        return hit[1]
-    return None
+    """The memoised adjacency for this key tensor, or None (never builds)."""
+    return _adjacency.peek((keys,), keys.shape[0], k)
 
 
 def get_adjacency_for(keys: torch.Tensor, k: int) -> torch.Tensor:
-    """Cached adjacency keyed by the key tensor itself (checked with
-    `is`: a bare id() can be reused once a tensor is freed)."""
-    adj = cached_adjacency_for(keys, k)
-    if adj is not None:
-        return adj
-    adj = build_adjacency(keys, k)
-    if len(_cache_store) > 8:
-        _cache_store.clear()
-    _cache_store[(id(keys), keys.shape[0], k)] = (keys, adj)
-    return adj
+    """The adjacency memoised on the key tensor itself: every graph phase
+    walks one store's adjacency many times."""
+    return _adjacency.get((keys,), lambda: build_adjacency(keys, k),
+                          keys.shape[0], k)
 
 
 def get_adjacency(g: gstore.DBGraph) -> torch.Tensor:

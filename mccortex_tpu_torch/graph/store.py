@@ -15,6 +15,7 @@ import torch
 
 from ..constants import check_k, nwords
 from ..ops import sorted as sops
+from ..utils.memo import Memo
 
 
 @dataclasses.dataclass
@@ -122,22 +123,14 @@ def union_edges(g: DBGraph) -> torch.Tensor:
     return E.union_colours(g.edges)
 
 
-_uedges_cache: dict = {}
+_union_edges = Memo()
 
 
 def cached_union_edges(g: DBGraph) -> torch.Tensor:
-    """union_edges memoised on the edges tensor (checked with `is`), so
-    the identity-keyed caches downstream (unitigs.cached_unitig_view)
-    can hit."""
-    ck = id(g.edges)
-    hit = _uedges_cache.get(ck)
-    if hit is not None and hit[0] is g.edges:
-        return hit[1]
-    ue = union_edges(g)
-    if len(_uedges_cache) > 4:
-        _uedges_cache.clear()
-    _uedges_cache[ck] = (g.edges, ue)
-    return ue
+    """union_edges memoised on the edges tensor, so the identity-keyed
+    memos downstream (unitigs.cached_unitig_view) can hit.  A copy: one
+    colour's union is a view of the edges, which would hold its key."""
+    return _union_edges.get((g.edges,), lambda: union_edges(g).clone())
 
 
 def compacted(g: DBGraph, align: int = 1 << 16) -> DBGraph:

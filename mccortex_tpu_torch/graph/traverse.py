@@ -28,6 +28,7 @@ import torch
 
 from ..ops import kmer as kops
 from ..ops import sorted as sops
+from ..utils.memo import Memo
 from ..utils.text import kmers_to_strings
 from ..utils.timing import span
 from . import adjacency as adjmod
@@ -440,21 +441,13 @@ def _hop_step(hg: HopGraph, st: HopState, bufs: list, colour: int | None,
                                 st.brent_limit))
 
 
-_chars_cache: dict = {}
+_chars = Memo()
 
 
 def cached_emit_chars(keys: torch.Tensor, k: int) -> np.ndarray:
-    """Host copy of _emit_chars, memoised on the key tensor (checked with
-    `is`: CLI contigs reconstructs every seed batch against one store)."""
-    ck = id(keys)
-    hit = _chars_cache.get(ck)
-    if hit is not None and hit[0] is keys:
-        return hit[1]
-    chars = _emit_chars(keys, k).cpu().numpy()
-    if len(_chars_cache) > 4:
-        _chars_cache.clear()
-    _chars_cache[ck] = (keys, chars)
-    return chars
+    """Host copy of _emit_chars, memoised on the key tensor (CLI contigs
+    reconstructs every seed batch against one store)."""
+    return _chars.get((keys,), lambda: _emit_chars(keys, k).cpu().numpy())
 
 
 def _emit_chars(keys: torch.Tensor, k: int) -> torch.Tensor:
@@ -507,26 +500,21 @@ def _hop_walk_once(g, uv, seed_vert, colour, max_len, adj, uedges,
     return st
 
 
-_layout_cache: dict = {}
+_layouts = Memo()
 
 
 def _chain_layout(uv, chars_np):
     """Walk-order layout (vertices sorted by (end, -dist)) + chars,
-    memoised per unitig view (checked with `is` on its succ tensor)."""
-    ck = id(uv.succ)
-    hit = _layout_cache.get(ck)
-    if hit is not None and hit[0] is uv.succ:
-        return hit[1]
+    memoised per unitig view (on its succ tensor)."""
+    return _layouts.get((uv.succ,), lambda: _make_layout(uv, chars_np))
+
+
+def _make_layout(uv, chars_np):
     end = uv.end.cpu().numpy()
     dist = uv.dist.cpu().numpy()
     order = np.lexsort((-dist, end))
-    layout = (end, dist, uv.is_cycle.cpu().numpy(), order,
-              chars_np[order],
-              np.searchsorted(end[order], np.arange(end.shape[0])))
-    if len(_layout_cache) > 4:
-        _layout_cache.clear()
-    _layout_cache[ck] = (uv.succ, layout)
-    return layout
+    return (end, dist, uv.is_cycle.cpu().numpy(), order, chars_np[order],
+            np.searchsorted(end[order], np.arange(end.shape[0])))
 
 
 def _reconstruct_hops(uv, chars_np, hop_v, hop_n, hop_cnt):

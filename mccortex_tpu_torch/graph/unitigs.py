@@ -18,6 +18,7 @@ import torch
 
 from ..ops import kmer as kops
 from ..ops import sorted as sops
+from ..utils.memo import Memo
 from ..utils.timing import span
 from . import adjacency as adjmod
 from . import edges as E
@@ -149,22 +150,15 @@ def unitig_view(keys: torch.Tensor, uedges: torch.Tensor, k: int
     return _view_finish(keys, succ, end, dist, minv)
 
 
-_view_cache: dict = {}
+_views = Memo()
 
 
 def cached_unitig_view(keys: torch.Tensor, uedges: torch.Tensor,
                        k: int) -> UnitigView:
-    """unitig_view memoised on the (keys, uedges) tensors (checked with
-    `is`), so clean's stats and pruning share one doubling pass."""
-    ck = (id(keys), id(uedges), k)
-    hit = _view_cache.get(ck)
-    if hit is not None and hit[0] is keys and hit[1] is uedges:
-        return hit[2]
-    uv = unitig_view(keys, uedges, k)
-    if len(_view_cache) > 4:
-        _view_cache.clear()
-    _view_cache[ck] = (keys, uedges, uv)
-    return uv
+    """unitig_view memoised on the (keys, uedges) tensors, so clean's
+    stats and pruning share one doubling pass."""
+    return _views.get((keys, uedges), lambda: unitig_view(keys, uedges, k),
+                      k)
 
 
 def _view_finish(keys, succ, end, dist, minv) -> UnitigView:

@@ -49,6 +49,7 @@ from ..graph import store as gstore
 from ..graph import traverse as T
 from ..ops import kmer as kops
 from ..ops import sorted as sops
+from ..utils.memo import Memo
 from ..utils.text import kmers_to_strings
 from ..utils.timing import count, span
 from . import store as lstore
@@ -869,21 +870,18 @@ def walk_linked_chunked(g, links, st, colour, max_steps, ctpcol=0,
 # unitigs and sentinels.
 # ---------------------------------------------------------------------------
 
-_hopinfo_cache: dict = {}
-_pos_cache: dict = {}
+_hopinfo = Memo()
+_positions_of = Memo()
 
 
 def _positions(order: np.ndarray) -> np.ndarray:
     """The inverse of the walk order (a vertex's position in it),
-    memoised on the order array (checked with `is`)."""
-    hit = _pos_cache.get(id(order))
-    if hit is not None and hit[0] is order:
-        return hit[1]
-    pos = np.empty(order.shape[0], np.int64)
-    pos[order] = np.arange(order.shape[0])
-    _pos_cache.clear()
-    _pos_cache[id(order)] = (order, pos)
-    return pos
+    memoised on the order array."""
+    def make():
+        pos = np.empty(order.shape[0], np.int64)
+        pos[order] = np.arange(order.shape[0])
+        return pos
+    return _positions_of.get((order,), make)
 
 
 def _layout(g: gstore.DBGraph):
@@ -898,13 +896,13 @@ def get_hopinfo(g: gstore.DBGraph, links: lstore.LinkStore):
     the number of event-free vertices following v along its unitig
     chain; order = the vertices in walk order (graph/traverse.
     _chain_layout) and pos its inverse, so a hop of J <= jump[v] lands on
-    order[pos[v] + J].  Cached per (store keys, link offsets), each
-    checked with `is`, so a second link file on one graph never reads
-    the first one's hops."""
-    ck = (id(g.keys), id(links.offsets))
-    hit = _hopinfo_cache.get(ck)
-    if hit is not None and hit[0] is g.keys and hit[1] is links.offsets:
-        return hit[2]
+    order[pos[v] + J].  Memoised per (store keys, link offsets), so a
+    second link file on one graph never reads the first one's hops."""
+    return _hopinfo.get((g.keys, links.offsets),
+                        lambda: _make_hopinfo(g, links))
+
+
+def _make_hopinfo(g: gstore.DBGraph, links: lstore.LinkStore):
     with span("hopinfo", g.device):
         end, dist, is_cyc, order, _sorted_chars, run_start = _layout(g)
         P2 = order.shape[0]
@@ -930,12 +928,8 @@ def get_hopinfo(g: gstore.DBGraph, links: lstore.LinkStore):
         jump_pos[cyc_v[order]] = 0
         jump_v = np.zeros(P2, np.int32)
         jump_v[order] = jump_pos.astype(np.int32)
-        info = tuple(torch.from_numpy(a.astype(np.int32)).to(g.device)
+        return tuple(torch.from_numpy(a.astype(np.int32)).to(g.device)
                      for a in (jump_v, order, pos_of))
-    if len(_hopinfo_cache) > 4:
-        _hopinfo_cache.clear()
-    _hopinfo_cache[ck] = (g.keys, links.offsets, info)
-    return info
 
 
 def _pack2_dev(ob: torch.Tensor, Lc: int) -> torch.Tensor:

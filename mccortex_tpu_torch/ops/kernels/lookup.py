@@ -45,7 +45,6 @@ import torch
 
 from .. import kmer as kops
 from .. import sorted as sops
-from ..hashidx import _hash_np, query_planes
 from . import _build
 
 LANES = 128              # uint32 per row of the reference-shaped table
@@ -85,7 +84,7 @@ def build_table128(keys_np: np.ndarray, occ: float = 0.35,
     if b_bits is None:
         target = max(1.0, n / max(S * occ, 1.0))
         b_bits = max(1, int(np.ceil(np.log2(target))))
-    h = _hash_np(keys_np)
+    h = kops.kmer_hash_np(keys_np)
     while True:
         B = 1 << b_bits
         bucket = (h >> np.uint64(64 - b_bits)).astype(np.int64)
@@ -134,8 +133,8 @@ def build_table32(keys_np: np.ndarray, b_bits: int | None = None):
     # that a plain sort orders the keys by row and, within a row, by
     # store row (much faster than a stable argsort of the rows)
     low = np.uint64(0xFFFFFFFF)
-    todo = ((_hash_np(keys_np) >> np.uint64(64 - b_bits)) << np.uint64(32)) \
-        | np.arange(n, dtype=np.uint64)
+    home = kops.kmer_hash_np(keys_np) >> np.uint64(64 - b_bits)
+    todo = (home << np.uint64(32)) | np.arange(n, dtype=np.uint64)
     while len(todo):
         todo.sort()
         row = (todo >> np.uint64(32)).astype(np.int64)
@@ -228,7 +227,7 @@ def _probe_plain(table: torch.Tensor, queries: torch.Tensor, b_bits: int,
     # the empty slots)
     sel = (~sops.is_sentinel(q)).nonzero()[:, 0]
     bkt = kops.srl(kops.kmer_hash(q[sel]), 64 - b_bits)
-    planes = [p[sel] for p in query_planes(q)]
+    planes = [p[sel] for p in kops.query_planes(q)]
     for _ in range(B):
         if sel.numel() == 0:
             break

@@ -12,6 +12,7 @@ Every function works on any device; the word axis W is always last.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..constants import nwords
@@ -212,6 +213,36 @@ def kmer_hash(keys: torch.Tensor, seed: int = 0) -> torch.Tensor:
     for w in range(1, W):
         h = splitmix64(h ^ keys[..., w])
     return h
+
+
+def kmer_hash_np(keys: np.ndarray, seed: int = 0) -> np.ndarray:
+    """Host mirror of kmer_hash on (n, W) uint64 keys (must match bit
+    for bit)."""
+    gold = np.uint64(0x9E3779B97F4A7C15)
+    c1 = np.uint64(0xBF58476D1CE4E5B9)
+    c2 = np.uint64(0x94D049BB133111EB)
+
+    def sm(x):
+        with np.errstate(over="ignore"):
+            x = x + gold
+            x = (x ^ (x >> np.uint64(30))) * c1
+            x = (x ^ (x >> np.uint64(27))) * c2
+            return x ^ (x >> np.uint64(31))
+
+    with np.errstate(over="ignore"):
+        h = sm(keys[:, 0] ^ (np.uint64(seed) * gold))
+        for w in range(1, keys.shape[1]):
+            h = sm(h ^ keys[:, w])
+    return h
+
+
+def query_planes(q: torch.Tensor):
+    """(Q, W) int64 words -> 2W (Q,) int32 limbs [w0_hi, w0_lo, ...]."""
+    out = []
+    for w in range(q.shape[1]):
+        out.append((q[:, w] >> 32).to(torch.int32))
+        out.append(q[:, w].to(torch.int32))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,7 @@ from ..ops import hashidx
 from ..ops import kmer as kops
 from ..ops import sorted as sops
 from ..ops.kernels import mergepath
+from ..utils.memo import Memo
 
 _MASK32 = 0xFFFFFFFF
 
@@ -130,26 +131,18 @@ def concat(parts: list, dev: torch.device, shared=()):
     return dataclasses.replace(parts[0], **kw)
 
 
-_replicas: dict = {}
+_replica_of = Memo()
 
 
 def replica(obj, dev: torch.device):
     """`obj` (a store or a link store) on `dev`, made once per object and
-    device, so that the identity-keyed caches of a replica (lookup
+    device, so that the identity-keyed memos of a replica (lookup
     table, adjacency, unitig view) are built once.  On its own device
     it is `obj` itself."""
     dev = torch.device(dev)
     if obj.device == dev:
         return obj
-    ck = (id(obj), str(dev))
-    hit = _replicas.get(ck)
-    if hit is not None and hit[0] is obj:
-        return hit[1]
-    rep = to_device(obj, dev)
-    if len(_replicas) > 16:
-        _replicas.clear()
-    _replicas[ck] = (obj, rep)
-    return rep
+    return _replica_of.get((obj,), lambda: to_device(obj, dev), str(dev))
 
 
 def chunks(n_items: int, n_parts: int) -> list:

@@ -11,6 +11,7 @@ rows; n = B x S leaves no empty slot.
 
 import numpy as np
 
+from mccortex_tpu_torch.ops import kmer as kops
 from mccortex_tpu_torch.ops.kernels import lookup
 
 CASES = {
@@ -42,7 +43,7 @@ def keys_of(W: int, n: int, b_bits, extra: int, seed: int = 0) -> np.ndarray:
         B = 1 << b_bits
         pool = rng.integers(0, 1 << 62, size=(4 * extra * B, W),
                             dtype=np.uint64)
-        pool = pool[lookup._hash_np(pool) >> np.uint64(64 - b_bits)
+        pool = pool[kops.kmer_hash_np(pool) >> np.uint64(64 - b_bits)
                     == B - 1][:extra]
         assert len(pool) == extra
         keys = np.concatenate([keys, pool])
@@ -61,6 +62,6 @@ def rounds_of(table: np.ndarray, keys: np.ndarray, b_bits: int) -> int:
     idx = table[:, 2 * W * S:(2 * W + 1) * S]
     row, _slot = np.nonzero(idx != 0xFFFFFFFF)
     store = idx[row, _slot].astype(np.int64)
-    home = (lookup._hash_np(keys) >> np.uint64(64 - b_bits)).astype(
+    home = (kops.kmer_hash_np(keys) >> np.uint64(64 - b_bits)).astype(
         np.int64)[store]
     return int(((row - home) % (1 << b_bits)).max()) + 1

@@ -1,12 +1,11 @@
 """The port's lookup layer (ops.kmer hashing, ops.hashidx, the lookup
-kernel's plain version, ops.sorted.lookup_join, graph.store and
+kernel's plain version, ops.sorted's binary search, graph.store and
 graph.edges helpers) against mccortex_tpu on the same numpy-seeded
 inputs, on the CPU.  The JAX Pallas kernel runs with interpret=True, as
 tests/test_pallas_lookup.py runs it.  Integer outputs: exact equality,
 no tolerance."""
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -58,20 +57,14 @@ def _queries(seed, keys, nq):
 
 @pytest.fixture(scope="module", params=[1, 2, 3], ids=["W1", "W2", "W3"])
 def case(request):
-    """A store, its queries and JAX's answers through every lookup."""
+    """A store, its queries and the answers of JAX's lookup kernel."""
     W = request.param
     keys = _keys(40 + W, 3000, W)
     q = _queries(50 + W, keys, 2001)
     t128, b128 = jpl.build_table128(keys)
-    tplan, bplan = jh.build_table(keys)
-    want = {
-        "fused": jpl.lookup_fused(jnp.asarray(t128), jnp.asarray(q), b128,
-                                  W, interpret=True),
-        "planar": jh.lookup_planar(jnp.asarray(tplan), jnp.asarray(q),
-                                   bplan, W),
-        "join": jsops.lookup_join(jnp.asarray(keys), jnp.asarray(q)),
-    }
-    want = {k: (np.asarray(i), np.asarray(f)) for k, (i, f) in want.items()}
+    idx, found = jpl.lookup_fused(jnp.asarray(t128), jnp.asarray(q), b128,
+                                  W, interpret=True)
+    want = {"fused": (np.asarray(idx), np.asarray(found))}
     return dict(W=W, keys=keys, q=q, want=want)
 
 
@@ -90,8 +83,8 @@ def test_kmer_hash_matches_jax_and_host_mirror(W, seed):
     want = np.asarray(jk.kmer_hash(jnp.asarray(keys)))
     got = _u64(tk.kmer_hash(_t(keys)))
     np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(th._hash_np(keys), jh._hash_np(keys))
-    np.testing.assert_array_equal(got, th._hash_np(keys))
+    np.testing.assert_array_equal(tk.kmer_hash_np(keys), jh._hash_np(keys))
+    np.testing.assert_array_equal(got, tk.kmer_hash_np(keys))
     np.testing.assert_array_equal(
         _u64(tk.kmer_hash(_t(keys), seed=7)),
         np.asarray(jk.kmer_hash(jnp.asarray(keys), seed=7)))
@@ -116,18 +109,15 @@ def test_oriented_and_shift_append_match_jax(k):
 
 @pytest.mark.parametrize("W,b_bits", [(1, None), (2, None), (1, 1), (2, 1)])
 def test_tables_byte_equal_to_jax(W, b_bits):
-    """Both tables, including the overflow retry from a b_bits that is
-    far too small."""
+    """The reference-shaped 128-lane table, including the overflow retry
+    from a b_bits that is far too small."""
     keys = _keys(60 + W, 4000, W)
-    for got, want in ((th.build_table(keys, b_bits),
-                       jh.build_table(keys, b_bits)),
-                      (tl.build_table128(keys, b_bits=b_bits),
-                       jpl.build_table128(keys, b_bits=b_bits))):
-        assert got[1] == want[1]
-        assert got[0].dtype == want[0].dtype == np.uint32
-        np.testing.assert_array_equal(got[0], want[0])
-    table, bb = tl.build_table128(keys, b_bits=b_bits)
-    assert table.shape == (1 << bb, 128)
+    got = tl.build_table128(keys, b_bits=b_bits)
+    want = jpl.build_table128(keys, b_bits=b_bits)
+    assert got[1] == want[1]
+    assert got[0].dtype == want[0].dtype == np.uint32
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[0].shape == (1 << got[1], 128)
 
 
 def test_lookup_plain_and_fused_on_cpu_match_jax_kernel(case):
@@ -187,7 +177,8 @@ def test_table32_invariant(W, n, b_bits):
     store, r, fill, S = _table32_layout(table, keys, bb)
     B = 1 << bb
     np.testing.assert_array_equal(np.sort(store), np.arange(len(keys)))
-    home = (th._hash_np(keys) >> np.uint64(64 - bb)).astype(np.int64)[store]
+    home = (tk.kmer_hash_np(keys) >> np.uint64(64 - bb)).astype(
+        np.int64)[store]
     d = (r - home) % B
     full = np.concatenate([[0], np.cumsum(np.tile(fill == S, 2))])
     # rows home .. home+d-1 (modulo B) are all full
@@ -224,7 +215,8 @@ def test_table32_forced_chains_and_wrap(W, n, b_bits):
     table, bb = tl.build_table32(keys, b_bits=b_bits)
     assert bb == b_bits
     store, r, fill, S = _table32_layout(table, keys, bb)
-    home = (th._hash_np(keys) >> np.uint64(64 - bb)).astype(np.int64)[store]
+    home = (tk.kmer_hash_np(keys) >> np.uint64(64 - bb)).astype(
+        np.int64)[store]
     assert ((r - home) % (1 << bb)).max() >= 2
     assert (r < home).any()                     # stored past the last row
     q = np.concatenate([keys, _queries(95 + W, keys, 1501)])
@@ -256,7 +248,7 @@ def test_chained_probe_on_a_crowded_128_lane_table_matches_jax(W):
     walks on from a full row and still gives JAX's answers."""
     pool = _keys(20 + W, 4000, W)
     S, bb = tl.slots_for(W), 4
-    home = (th._hash_np(pool) >> np.uint64(64 - bb)).astype(np.int64)
+    home = (tk.kmer_hash_np(pool) >> np.uint64(64 - bb)).astype(np.int64)
     order = np.argsort(home, kind="stable")
     rank = np.empty(len(pool), np.int64)
     rank[order] = np.arange(len(pool)) - np.searchsorted(home[order],
@@ -278,41 +270,13 @@ def test_chained_probe_on_a_crowded_128_lane_table_matches_jax(W):
     assert int(tl.rows_read(tt, _t(q), bb, W).max()) >= 2
 
 
-def test_lookup_fused_equals_planar_and_join(monkeypatch, case):
-    W, keys, q = case["W"], case["keys"], case["q"]
-    kt = _t(np.concatenate([keys, np.full((33, W), SENT)]))
-    got = {}
-    for impl in ("fused", "planar", "join"):
-        monkeypatch.setattr(th, "LOOKUP_IMPL", impl)
-        got[impl] = th.lookup(kt, _t(q).reshape(3, 667, W))
-    table, bb = th.get_index32_for(kt)
-    assert table.shape == (1 << bb, tl.ROW32) and table.dtype == torch.int32
-    for impl in ("planar", "join"):
-        assert torch.equal(got[impl][0], got["fused"][0])
-        assert torch.equal(got[impl][1], got["fused"][1])
-    _check((got["fused"][0].reshape(-1), got["fused"][1].reshape(-1)),
-           _truth(keys, q))
-
-
-def test_lookup_planar_and_join_match_jax(case):
-    W, keys, q = case["W"], case["keys"], case["q"]
-    table, bb = th.build_table(keys)
-    _check(th.lookup_planar(torch.from_numpy(table.view(np.int32)), _t(q),
-                            bb, W), case["want"]["planar"])
-    _check(tsops.lookup_join(_t(keys), _t(q)), case["want"]["join"])
-    # a sentinel-padded store, as the graph phases pass it
-    padded = np.concatenate([keys, np.full((77, W), SENT)])
-    _check(tsops.lookup_join(_t(padded), _t(q)), case["want"]["join"])
-    for impl in ("planar", "join"):
-        np.testing.assert_array_equal(case["want"][impl][0],
-                                      case["want"]["fused"][0])
-
-
 @pytest.mark.parametrize("impl", ["auto", "planar", "fused", "join"])
 def test_lookup_under_each_mctx_lookup(monkeypatch, case, impl):
+    """The port's one lookup against the JAX package's lookup under each
+    of its MCTX_LOOKUP values; the table is memoised on the key tensor
+    itself."""
     W, keys, q = case["W"], case["keys"], case["q"]
     padded = np.concatenate([keys, np.full((100, W), SENT)])
-    monkeypatch.setattr(th, "LOOKUP_IMPL", impl)
     monkeypatch.setattr(jh, "LOOKUP_IMPL", impl)
     if impl == "fused":   # JAX's lookup would run the kernel compiled
         want = case["want"]["fused"]
@@ -321,89 +285,43 @@ def test_lookup_under_each_mctx_lookup(monkeypatch, case, impl):
     kt = _t(padded)
     got = th.lookup(kt, _t(q))
     _check(got, (np.asarray(want[0]), np.asarray(want[1])))
-    # the table is cached on the key tensor itself
-    if impl in ("fused", "planar"):
-        cache = th._cache32 if impl == "fused" else th._cache_store
-        hit = cache[(id(kt), tuple(kt.shape))]
-        assert hit[0] is kt
-        assert th.lookup(kt, _t(q))[0].equal(got[0])
-        assert len([v for v in cache.values() if v[0] is kt]) == 1
+    table, bb = th._tables.peek((kt,), tuple(kt.shape))
+    assert table.shape == (1 << bb, tl.ROW32) and table.dtype == torch.int32
+    n = len(th._tables)
+    assert th.get_index32_for(kt)[0] is table
+    assert th.lookup(kt, _t(q))[0].equal(got[0])
+    assert len(th._tables) == n
+    assert th._tables.peek((kt.clone(),), tuple(kt.shape)) is None
 
 
-def test_lookup_chunks_large_batches(monkeypatch, case):
-    W, keys, q = case["W"], case["keys"], case["q"]
-    monkeypatch.setattr(th, "HCHUNK", 512)
-    for impl in ("planar", "join"):
-        monkeypatch.setattr(th, "LOOKUP_IMPL", impl)
-        _check(th.lookup(_t(keys), _t(q)), case["want"]["fused"])
+LOOKUP_KINDS = ["live", "padded", "empty", "batch_shape", "many_queries"]
 
 
-def test_pick_impl_gate(monkeypatch):
-    monkeypatch.setattr(th, "LOOKUP_IMPL", "auto")
-    monkeypatch.setattr(jh, "LOOKUP_IMPL", "auto")
-    # a CUDA store takes the kernel whatever the shapes
-    for n, nq in ((10, 10), (1 << 20, 1 << 22), (100 << 20, 1)):
-        assert th._pick_impl(n, nq, "cuda") == "fused"
-        assert th._pick_impl(n, nq, torch.device("cuda", 0)) == "fused"
-    # the CPU keeps the JAX package's gate
-    for n, nq in ((10, 10), (1 << 20, 1 << 21), (3 << 20, 1 << 20),
-                  (1 << 21, 1 << 23), (40 << 20, 1 << 23), (0, 1 << 20)):
-        assert th._pick_impl(n, nq) == jh._pick_impl(n, nq)
-    assert th._pick_impl(1 << 20, 1 << 21) == "join"
-    monkeypatch.setattr(th, "LOOKUP_IMPL", "planar")
-    assert th._pick_impl(5, 5, "cuda") == "planar"
-    monkeypatch.setattr(th, "LOOKUP_IMPL", "bogus")
-    with pytest.raises(ValueError, match="MCTX_LOOKUP"):
-        th._pick_impl(5, 5)
-
-
-def test_lookup_join_mp_runs_and_rejects_unknown_variant_and_wide_keys():
-    """variant="mp" runs; an unknown variant raises, and so do more key
-    planes than the kernels stage."""
-    keys = _t(_keys(1, 10, 1))
-    idx, found = tsops.lookup_join(keys, keys, variant="mp")
-    assert found.all() and torch.equal(idx, torch.arange(10, dtype=torch.int32))
-    with pytest.raises(ValueError, match="unknown lookup_join variant"):
-        tsops.lookup_join(keys, keys, variant="quick")
-    wide = _t(_keys(2, 10, 5))
-    with pytest.raises(ValueError, match="key planes"):
-        tsops.lookup_join(wide, wide, variant="mp")
-
-
-def test_lookup_join_mp_matches_lax_and_jax(case):
-    W, keys, q = case["W"], case["keys"], case["q"]
-    _check(tsops.lookup_join(_t(keys), _t(q), variant="mp"),
-           case["want"]["join"])
-    padded = np.concatenate([keys, np.full((77, W), SENT)])
-    got = tsops.lookup_join(_t(padded), _t(q).reshape(3, 667, W),
-                            variant="mp")
-    lax = tsops.lookup_join(_t(padded), _t(q).reshape(3, 667, W))
-    assert got[0].shape == (3, 667)
-    assert torch.equal(got[0], lax[0]) and torch.equal(got[1], lax[1])
-
-
-@pytest.mark.parametrize("W", [1, 2])
-def test_lookup_join_mp_matches_jax_mp(W):
-    # the JAX package's own mp variant (Pallas in interpret mode, at a
-    # small block), on the inputs of its test
-    from mccortex_tpu.ops.pallas import mergepath as jmp
-    saved = jmp._r_blk_for
-    jmp._r_blk_for = lambda np_: 8
-    jax.clear_caches()
-    try:
-        store = _keys(31, 1500, W)
-        rng = np.random.default_rng(32)
-        q = np.concatenate([store[rng.integers(0, len(store), 300)],
-                            _keys(33, 120, W), np.full((7, W), SENT)])
-        rng.shuffle(q)
-        padded = np.concatenate([store, np.full((64, W), SENT)])
-        want = jsops.lookup_join(jnp.asarray(padded), jnp.asarray(q),
-                                 variant="mp", interpret=True)
-    finally:
-        jmp._r_blk_for = saved
-        jax.clear_caches()
-    _check(tsops.lookup_join(_t(padded), _t(q), variant="mp"),
-           (np.asarray(want[0]), np.asarray(want[1])))
+@pytest.mark.parametrize("kind", LOOKUP_KINDS)
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+def test_lookup_matches_jax(W, kind):
+    """ops.hashidx.lookup against the JAX package's hashidx.lookup: a live
+    store, one with a sentinel tail as the graph phases pass it, an empty
+    one, a batch of queries shaped (3, 667, W), and a batch many times
+    the store with repeats and sentinel queries."""
+    keys = _keys(100 + W, 40 if kind == "many_queries" else 600, W)
+    q = _queries(110 + W, keys, 2001)
+    if kind == "padded" or kind == "batch_shape":
+        keys = np.concatenate([keys, np.full((77, W), SENT)])
+    elif kind == "empty":
+        keys = keys[:0]
+    if kind == "batch_shape":
+        q = q.reshape(3, 667, W)
+    elif kind == "many_queries":
+        rng = np.random.default_rng(120 + W)
+        q = np.concatenate([q, keys[rng.integers(0, len(keys), 3000)],
+                            np.full((20, W), SENT)])[rng.permutation(5021)]
+    want = jh.lookup(jnp.asarray(keys), jnp.asarray(q))
+    idx, found = th.lookup(_t(keys), _t(q))
+    assert idx.shape == found.shape == q.shape[:-1]
+    _check((idx.reshape(-1), found.reshape(-1)),
+           (np.asarray(want[0]).reshape(-1), np.asarray(want[1]).reshape(-1)))
+    assert bool(found.any()) == (kind != "empty")
 
 
 @pytest.mark.parametrize("W", [1, 2])

@@ -15,6 +15,7 @@ from mccortex_tpu_torch.graph import build as tb
 from mccortex_tpu_torch.graph import store as tstore
 from mccortex_tpu_torch.ops import sorted as sops
 from mccortex_tpu_torch.ops import hashidx
+from mccortex_tpu_torch.ops import kmer as kops
 from mccortex_tpu_torch.ops.kernels import _build, bitonic, frontend, lookup
 from mccortex_tpu_torch.ops.kernels import mergepath, segreduce
 
@@ -301,7 +302,7 @@ def test_lookup_kernel_walks_on_from_full_128_lane_rows(cuda, W):
     pool = np.unique(rng.integers(0, 1 << 62, size=(8000, W),
                                   dtype=np.uint64), axis=0)
     S, bb = lookup.slots_for(W), 4
-    home = (hashidx._hash_np(pool) >> np.uint64(64 - bb)).astype(np.int64)
+    home = (kops.kmer_hash_np(pool) >> np.uint64(64 - bb)).astype(np.int64)
     order = np.argsort(home, kind="stable")
     rank = np.empty(len(pool), np.int64)
     rank[order] = np.arange(len(pool)) - np.searchsorted(home[order],
@@ -319,8 +320,7 @@ def test_lookup_kernel_walks_on_from_full_128_lane_rows(cuda, W):
     assert bool(found[:len(keys)].all()) and int(rows.max()) == 3
 
 
-def test_lookup_auto_takes_the_kernel_on_a_cuda_store(cuda, monkeypatch):
-    monkeypatch.setattr(hashidx, "LOOKUP_IMPL", "auto")
+def test_lookup_auto_takes_the_kernel_on_a_cuda_store(cuda):
     _t, _b, q = _lookup_case(1, 3000, 100, 5)
     keys = sops.sort_by_key(q.unique(dim=0))[0].to(cuda)
     n0 = _build.LAUNCHES["lookup"]
@@ -622,28 +622,6 @@ def test_sort_planes_mp_kernel_is_a_stable_sort(cuda, M, nk, np_, hi):
     assert torch.equal(got, _stable(x, nk))
     again = mergepath.sort_planes_mp(x.to(cuda), nk).cpu()
     assert torch.equal(got, again)
-
-
-@pytest.mark.parametrize("W", [1, 2, 4])
-def test_lookup_join_mp_on_card_matches_lax(cuda, W):
-    rng = np.random.default_rng(W)
-    keys = np.unique(rng.integers(0, 1 << 62, size=(30_000, W),
-                                  dtype=np.uint64), axis=0)
-    q = keys[rng.integers(0, len(keys), 50_001)]
-    q[rng.random(len(q)) < 0.3] = rng.integers(0, 1 << 62, size=W,
-                                               dtype=np.uint64)
-    q[rng.random(len(q)) < 0.05] = np.uint64(2**64 - 1)
-    keys = torch.from_numpy(keys.view(np.int64)).to(cuda)
-    keys = sops.sort_by_key(keys)[0]
-    q = torch.from_numpy(q.view(np.int64)).to(cuda)
-    _build.LAUNCHES.clear()
-    idx, found = sops.lookup_join(keys, q, variant="mp")
-    assert _build.LAUNCHES["mergepath"] == 1
-    assert _build.LAUNCHES["bitonic_blocksort"] == 2
-    assert _build.LAUNCHES["mergelevel"] > 0
-    want = sops.lookup_join(keys, q)
-    assert torch.equal(idx, want[0]) and torch.equal(found, want[1])
-    assert bool(found.any()) and not bool(found.all())
 
 
 @pytest.mark.parametrize("engine", ["lax", "mp", "bitonic"])

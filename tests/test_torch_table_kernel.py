@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from mccortex_tpu_torch.ops import hashidx
+from mccortex_tpu_torch.ops import kmer as kops
 from mccortex_tpu_torch.ops.kernels import _build, lookup
 from mccortex_tpu_torch.utils import timing
 
@@ -54,7 +55,7 @@ def _layout(table, keys, b_bits):
     S = lookup.slots_for(W, lookup.ROW32)
     idx = table[:, 2 * W * S:(2 * W + 1) * S]
     row, slot = np.nonzero(idx != 0xFFFFFFFF)
-    home = (lookup._hash_np(keys) >> np.uint64(64 - b_bits)).astype(
+    home = (kops.kmer_hash_np(keys) >> np.uint64(64 - b_bits)).astype(
         np.int64)[idx[row, slot].astype(np.int64)]
     return row, home, (idx != 0xFFFFFFFF).sum(axis=1), S
 
