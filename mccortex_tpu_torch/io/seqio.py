@@ -7,18 +7,21 @@ without jax; tests hold the two equal.  Differences from it:
 - the FASTQ quality offset (`fq_offset`) and the CRAM reference
   (`cram_ref`, a {name: seq} map or a RefGenome) are arguments, not
   module globals;
-- every reader follows the native reader's rule: a batch whose
-  qualities are all zero comes out with `quals=None`, and an empty
-  record yields no row;
+- every reader follows the native reader's rule for qualities: a batch
+  whose qualities are all zero comes out with `quals=None`; the
+  chunking readers give an empty record no row;
 - the prefetch thread of `read_batches_native` always delivers its end
   marker, also when the queue is full at the end of the input.
 
-`read_batches_native` is the reader `build` uses: the C++ parser of
-`mccortex_tpu_torch/native` (FASTA/FASTQ/SAM/BAM; CRAM decodes in
-Python), or the Python parser when the library cannot be built; both
-give the same batches.  Mate pairs come as two files (read_batches_pe)
-or one interleaved file (read_batches_interleaved), normalised to the
-FR convention.
+Both batch readers parse in the C++ parser of `mccortex_tpu_torch/native`
+(FASTA/FASTQ/SAM/BAM; CRAM decodes in Python), or in the Python parser
+`parse_reads` when the library cannot be built; both parsers give the
+same batches.  `read_batches_native` is `build`'s: long records split
+into overlapping rows, a batch never spanning two files.
+`read_batches` is `thread`'s, `contigs --seed`'s and `subgraph`'s:
+whole records, batches that span files.  Mate pairs come as two files
+(read_batches_pe) or one interleaved file (read_batches_interleaved),
+normalised to the FR convention.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import numpy as np
 
 from .. import native as _native
 from ..constants import CHAR_TO_BASE
+from ..utils import timing
 
 
 @dataclass
@@ -235,36 +239,112 @@ def read_batches(paths, batch_size: int = 2048, max_len: int | None = None,
                  colour: int = 0, fq_offset: int = 0,
                  cram_ref=None) -> Iterator[tuple]:
     """Group reads into (codes (B, L) uint8, quals (B, L) uint8 | None,
-    colour) batches, padded with the invalid code 4.  With max_len=None
-    rows size to the longest read; with max_len, reads are CLIPPED to it
-    (read_batches_native splits long records instead)."""
-    buf = []
+    colour) batches of batch_size reads, padded with the invalid code 4;
+    a batch holds reads of consecutive files.  With max_len=None rows
+    size to the longest read; with max_len, reads are CLIPPED to it
+    (read_batches_native splits long records instead).  An empty record
+    is a row of 4s.
+
+    Each file parses in the C++ parser (whole records, by parse_reads'
+    rules) when the library is loaded and the file is not CRAM, else in
+    parse_reads: the same batches.  Counters `read.native` and
+    `read.python` count the reads of each."""
+    lib = _native.get_lib()
+    held, n = [], 0        # pieces of the batch being filled, their reads
     for path in paths:
-        for rd in parse_reads(path, fq_offset, cram_ref):
-            buf.append(rd)
-            if len(buf) >= batch_size:
-                yield _to_batch(buf, max_len, colour)
-                buf = []
-    if buf:
-        yield _to_batch(buf, max_len, colour)
+        native = lib is not None and not _is_cram(path)
+        pieces = (_native_records(lib, path, batch_size, fq_offset)
+                  if native else
+                  _python_records(path, batch_size, fq_offset, cram_ref))
+        with contextlib.closing(pieces):
+            for lens, codes, quals in pieces:
+                timing.count("read.native", len(lens) if native else 0)
+                timing.count("read.python", 0 if native else len(lens))
+                while len(lens):
+                    take = min(batch_size - n, len(lens))
+                    nb = int(lens[:take].sum())
+                    held.append((lens[:take], codes[:nb], quals[:nb]))
+                    lens, codes, quals = lens[take:], codes[nb:], quals[nb:]
+                    n += take
+                    if n == batch_size:
+                        yield _pad(held, max_len, colour)
+                        held, n = [], 0
+    if held:
+        yield _pad(held, max_len, colour)
 
 
-def _to_batch(reads, max_len, colour):
-    L = max(len(r.seq) for r in reads)
-    if max_len:
-        L = min(L, max_len)
-    L = max(L, 1)
-    B = len(reads)
-    codes = np.full((B, L), 4, dtype=np.uint8)
-    quals = np.zeros((B, L), dtype=np.uint8)
-    for i, r in enumerate(reads):
-        s = np.frombuffer(r.seq[:L].encode(), np.uint8)
-        codes[i, :len(s)] = CHAR_TO_BASE[s]
+def _native_records(lib, path, batch_size, fq_offset):
+    """(lens, codes, quals) pieces of up to batch_size whole records of
+    one file from the C++ parser: record i's bases and phred scores
+    follow record i - 1's in the flat codes and quals."""
+    h = lib.mctx_seq_open(os.fsencode(path), int(fq_offset), 0)
+    if not h:
+        raise FileNotFoundError(path)
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    cap = batch_size * 256
+    try:
+        while True:
+            codes = np.empty(cap, np.uint8)
+            quals = np.empty(cap, np.uint8)
+            lens = np.empty(batch_size, np.int32)
+            n = lib.mctx_seq_read_records(
+                h, batch_size, cap, codes.ctypes.data_as(u8),
+                quals.ctypes.data_as(u8),
+                lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+            if n == -2:                 # a record longer than the buffer
+                cap = max(2 * cap, int(lens[0]))
+                continue
+            if n < 0:
+                raise ValueError(f"{path}: native parse error")
+            if n == 0:
+                return
+            total = int(lens[:n].sum())
+            yield lens[:n], codes[:total], quals[:total]
+    finally:
+        lib.mctx_seq_close(h)
+
+
+def _python_records(path, batch_size, fq_offset, cram_ref):
+    """_native_records' pieces from parse_reads."""
+    reads = parse_reads(path, fq_offset, cram_ref)
+    while chunk := list(itertools.islice(reads, batch_size)):
+        yield _piece(chunk)
+
+
+def _piece(reads):
+    """(lens, codes, quals) of a list of Reads, flat as _native_records
+    gives them (0 where a read has no quality)."""
+    lens = np.array([len(r.seq) for r in reads], np.int32)
+    codes = CHAR_TO_BASE[np.frombuffer(
+        "".join(r.seq for r in reads).encode(), np.uint8)]
+    quals = np.zeros(len(codes), np.uint8)
+    for r, end, n in zip(reads, np.cumsum(lens), lens):
         if r.quals is not None:
-            q = r.quals[:L]
-            quals[i, :len(q)] = q
+            q = r.quals[:n]
+            quals[end - n:end - n + len(q)] = q
+    return lens, codes, quals
+
+
+def _pad(held, max_len, colour):
+    """One batch from the held pieces: rows padded with 4 to the longest
+    record, clipped to max_len."""
+    lens, codes, quals = (np.concatenate(x) for x in zip(*held))
+    if max_len and lens.max() > max_len:
+        at = np.arange(len(codes)) - np.repeat(np.cumsum(lens) - lens, lens)
+        keep = at < max_len
+        lens, codes, quals = np.minimum(lens, max_len), codes[keep], \
+            quals[keep]
+    B, L = len(lens), max(int(lens.max()), 1)
+    if (lens == L).all():       # reads of one length: no padding
+        rows, q = codes.reshape(B, L), quals.reshape(B, L)
+    else:
+        inside = np.arange(L) < lens[:, None]
+        rows = np.full((B, L), 4, np.uint8)
+        rows[inside] = codes
+        q = np.zeros((B, L), np.uint8)
+        q[inside] = quals
     # the native reader's rule: no quality above 0, no quality array
-    return codes, (quals if quals.any() else None), colour
+    return rows, (q if q.any() else None), colour
 
 
 def _chunk_read(rd: Read, max_len: int, overlap: int):
@@ -300,15 +380,15 @@ def read_batches_chunked(paths, batch_size: int = 2048, max_len: int = 1024,
             for ch in _chunk_read(rd, max_len, overlap):
                 buf.append(ch)
                 if len(buf) >= batch_size:
-                    yield _to_batch(buf, max_len, colour)
+                    yield _pad([_piece(buf)], max_len, colour)
                     buf = []
     if buf:
-        yield _to_batch(buf, max_len, colour)
+        yield _pad([_piece(buf)], max_len, colour)
 
 
 def reader_name() -> str:
-    """Which reader read_batches_native runs: "native" when the C++
-    library is built and loaded, else "python"."""
+    """Which parser the batch readers run on files other than CRAM:
+    "native" when the C++ library is built and loaded, else "python"."""
     return "python" if _native.get_lib() is None else "native"
 
 

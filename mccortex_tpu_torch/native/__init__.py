@@ -81,10 +81,12 @@ def get_lib():
                                       ctypes.c_long]
         lib.mctx_seq_close.restype = None
         lib.mctx_seq_close.argtypes = [ctypes.c_void_p]
-        lib.mctx_seq_read_batch.restype = ctypes.c_long
-        lib.mctx_seq_read_batch.argtypes = [
-            ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
-            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_int32)]
+        for fn in (lib.mctx_seq_read_batch, lib.mctx_seq_read_records):
+            fn.restype = ctypes.c_long
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
+                ctypes.POINTER(ctypes.c_uint8),
+                ctypes.POINTER(ctypes.c_uint8),
+                ctypes.POINTER(ctypes.c_int32)]
         _lib = lib
         return _lib

@@ -1,11 +1,14 @@
 // Native sequence ingest: FASTA/FASTQ/SAM/BAM (plain or gzip/BGZF) ->
-// packed base-code batches, the host-side decode path of `build`.
-// Copy of mccortex_tpu/native/seqio.cpp with one change: the FASTQ
+// base codes, the host-side decode path of `build` and of `thread`.
+// Copy of mccortex_tpu/native/seqio.cpp with two changes: the FASTQ
 // quality offset and the chunk overlap are arguments of mctx_seq_open,
 // held per handle, instead of process-wide settings, so that two
 // readers open at once (the two mates of a pair, each on its own
-// prefetch thread) keep their own.  Exposed as a small C ABI consumed
-// via ctypes (mccortex_tpu_torch/native/__init__.py).
+// prefetch thread) keep their own; and a second entry point,
+// mctx_seq_read_records, hands out whole records by the rules of the
+// Python reader (io/seqio.parse_reads).  Both entry points share one
+// record parser, next_record.  Exposed as a small C ABI consumed via
+// ctypes (mccortex_tpu_torch/native/__init__.py).
 //
 // BAM's BGZF container is a sequence of concatenated gzip members,
 // which zlib's gzread traverses transparently; no htslib is needed for
@@ -45,6 +48,7 @@ struct SeqFile {
   size_t sc_len;        // record length in scratch
   size_t sc_off;        // next chunk start (sc_off < sc_len = pending)
   bool sc_has_quals;
+  bool held;            // a whole record in scratch not yet handed out
 };
 
 uint8_t base_code[256];
@@ -111,6 +115,7 @@ void *mctx_seq_open(const char *path, int fq_offset, long overlap) {
   f->sc_len = 0;
   f->sc_off = 0;
   f->sc_has_quals = false;
+  f->held = false;
   // BAM detection: decompressed stream starts with "BAM\1"
   char magic[4];
   int got = gzread(gz, magic, 4);
@@ -245,6 +250,123 @@ int parse_sam_line(SeqFile *f, char *line) {
   return 1;
 }
 
+// Python's str.strip() set within ASCII: the whole-record path strips
+// FASTA and FASTQ lines as the Python reader does
+bool is_space(char c) {
+  return c == ' ' || (c >= '\t' && c <= '\r') || (c >= 0x1c && c <= 0x1f);
+}
+
+// The line's bases as the Python reader keeps them: *p moves past
+// leading and the length drops trailing whitespace.
+long strip_line(const char **p, long len) {
+  while (len > 0 && is_space(**p)) { (*p)++; len--; }
+  while (len > 0 && is_space((*p)[len - 1])) len--;
+  return len;
+}
+
+// The next record of the file into the scratch (sc_len bases, 0 for an
+// empty record).  Returns 1, 0 at the end of the file, -1 on a parse
+// error.  whole: the Python reader's rules, for mctx_seq_read_records:
+// the first line, blank or not, decides the format (a tab: SAM), and
+// FASTA and FASTQ sequence and quality lines lose surrounding
+// whitespace.  Otherwise blank lines before the first record are
+// skipped, a '>' line is FASTA even with a tab, and lines are kept
+// but for their line ends (mctx_seq_read_batch, as before).
+int next_record(SeqFile *f, bool whole) {
+  if (f->format == 3) {          // BAM
+    for (;;) {
+      int r = read_bam_record(f);
+      if (r != 2) return r;
+    }
+  }
+  for (;;) {
+    long len;
+    if (f->have_pending) {
+      len = (long)strlen(f->pending);
+      // swap pending into linebuf
+      char *tmp = f->linebuf; size_t tcap = f->linecap;
+      f->linebuf = f->pending; f->linecap = f->pendingcap;
+      f->pending = tmp; f->pendingcap = tcap;
+      f->have_pending = false;
+    } else {
+      len = read_line(f, &f->linebuf, &f->linecap);
+      if (len < 0) return 0;
+      if (len == 0 && !(whole && f->format == 0)) continue;
+    }
+    char first = f->linebuf[0];
+    if (f->format == 0) {
+      bool has_tab = strchr(f->linebuf, '\t') != nullptr;
+      if (whole) {
+        if (has_tab) f->format = 4;
+        else if (first == '>') f->format = 1;
+        else if (first == '@') f->format = 2;
+        else return -1;
+      } else if (first == '>') f->format = 1;
+      else if (first == '@' && has_tab) f->format = 4;   // SAM header
+      else if (first == '@') f->format = 2;
+      else if (has_tab) f->format = 4;       // headerless SAM record
+      else return -1;
+    }
+    if (f->format == 4) {                    // SAM
+      if (first == '@') continue;            // header line
+      if (parse_sam_line(f, f->linebuf) == 1) return 1;
+      continue;
+    }
+    if (f->format == 1) {                    // FASTA
+      if (first != '>') return -1;
+      // accumulate sequence lines until next '>' or EOF
+      size_t total = 0;
+      for (;;) {
+        long l2 = read_line(f, &f->pending, &f->pendingcap);
+        if (l2 < 0) break;
+        if (l2 == 0) continue;
+        if (f->pending[0] == '>') { f->have_pending = true; break; }
+        const char *p = f->pending;
+        if (whole) l2 = strip_line(&p, l2);
+        sc_reserve(f, total + (size_t)l2);
+        for (long i = 0; i < l2; i++)
+          f->sc_codes[total + i] = base_code[(uint8_t)p[i]];
+        total += (size_t)l2;
+      }
+      f->sc_len = total;
+      f->sc_off = 0;
+      f->sc_has_quals = false;
+      return 1;
+    }
+    // FASTQ
+    if (first != '@') return -1;
+    long l2 = read_line(f, &f->linebuf, &f->linecap);  // sequence
+    if (l2 < 0) return -1;
+    const char *p = f->linebuf;
+    if (whole) l2 = strip_line(&p, l2);
+    sc_reserve(f, (size_t)l2);
+    for (long i = 0; i < l2; i++)
+      f->sc_codes[i] = base_code[(uint8_t)p[i]];
+    if (read_line(f, &f->linebuf, &f->linecap) < 0) return -1;  // '+'
+    long l4 = read_line(f, &f->linebuf, &f->linecap);           // quals
+    if (l4 < 0) return -1;
+    p = f->linebuf;
+    if (whole) l4 = strip_line(&p, l4);
+    if (f->fq_offset == 0) {
+      // auto-detect (ref seq_file): any char below '@' => phred+33
+      int minc = 255;
+      for (long i = 0; i < l4; i++)
+        if ((int)(uint8_t)p[i] < minc) minc = (int)(uint8_t)p[i];
+      f->fq_offset = (l4 == 0 || minc < 64) ? 33 : 64;
+    }
+    if (l4 > l2) l4 = l2;
+    memset(f->sc_quals, 0, (size_t)l2);
+    for (long i = 0; i < l4; i++) {
+      int q = (int)p[i] - f->fq_offset;
+      f->sc_quals[i] = (uint8_t)(q < 0 ? 0 : (q > 255 ? 255 : q));
+    }
+    f->sc_len = (size_t)l2;
+    f->sc_off = 0;
+    f->sc_has_quals = true;
+    return 1;
+  }
+}
+
 }  // namespace
 
 void mctx_seq_close(void *h) {
@@ -271,105 +393,56 @@ long mctx_seq_read_batch(void *h, long max_reads, long max_len,
   memset(quals, 0, (size_t)max_reads * max_len);
   long n = 0;
 
-  // drain a chunked record carried over from the previous batch
-  while (f->sc_len > f->sc_off && n < max_reads) {
-    sc_emit(f, max_len, codes + (size_t)n * max_len,
-            quals + (size_t)n * max_len, lens + n);
-    n++;
-  }
-
-  if (f->format == 3) {          // BAM
-    while (n < max_reads) {
-      int r = read_bam_record(f);
-      if (r < 0) return -1;
-      if (r == 0) break;
-      if (r != 1) continue;
-      while (f->sc_len > f->sc_off && n < max_reads) {
-        sc_emit(f, max_len, codes + (size_t)n * max_len,
-                quals + (size_t)n * max_len, lens + n);
-        n++;
-      }
-    }
-    return n;
-  }
-  while (n < max_reads) {
-    long len;
-    if (f->have_pending) {
-      len = (long)strlen(f->pending);
-      // swap pending into linebuf
-      char *tmp = f->linebuf; size_t tcap = f->linecap;
-      f->linebuf = f->pending; f->linecap = f->pendingcap;
-      f->pending = tmp; f->pendingcap = tcap;
-      f->have_pending = false;
-    } else {
-      len = read_line(f, &f->linebuf, &f->linecap);
-      if (len < 0) break;
-      if (len == 0) continue;
-    }
-    char first = f->linebuf[0];
-    if (f->format == 0) {
-      bool has_tab = strchr(f->linebuf, '\t') != nullptr;
-      if (first == '>') f->format = 1;
-      else if (first == '@' && has_tab) f->format = 4;   // SAM header
-      else if (first == '@') f->format = 2;
-      else if (has_tab) f->format = 4;       // headerless SAM record
-      else return -1;
-    }
-    if (f->format == 4) {                    // SAM
-      if (first == '@') continue;            // header line
-      int r = parse_sam_line(f, f->linebuf);
-      if (r != 1) continue;
-    } else if (f->format == 1) {             // FASTA
-      if (first != '>') return -1;
-      // accumulate sequence lines until next '>' or EOF
-      size_t total = 0;
-      for (;;) {
-        long l2 = read_line(f, &f->pending, &f->pendingcap);
-        if (l2 < 0) break;
-        if (l2 == 0) continue;
-        if (f->pending[0] == '>') { f->have_pending = true; break; }
-        sc_reserve(f, total + (size_t)l2);
-        for (long i = 0; i < l2; i++)
-          f->sc_codes[total + i] = base_code[(uint8_t)f->pending[i]];
-        total += (size_t)l2;
-      }
-      f->sc_len = total;
-      f->sc_off = 0;
-      f->sc_has_quals = false;
-      if (total == 0) continue;
-    } else {                                 // FASTQ
-      if (first != '@') return -1;
-      long l2 = read_line(f, &f->linebuf, &f->linecap);  // sequence
-      if (l2 < 0) return -1;
-      sc_reserve(f, (size_t)l2);
-      for (long i = 0; i < l2; i++)
-        f->sc_codes[i] = base_code[(uint8_t)f->linebuf[i]];
-      if (read_line(f, &f->linebuf, &f->linecap) < 0) return -1;  // '+'
-      long l4 = read_line(f, &f->linebuf, &f->linecap);           // quals
-      if (l4 < 0) return -1;
-      if (f->fq_offset == 0) {
-        // auto-detect (ref seq_file): any char below '@' => phred+33
-        int minc = 255;
-        for (long i = 0; i < l4; i++)
-          if ((int)(uint8_t)f->linebuf[i] < minc)
-            minc = (int)(uint8_t)f->linebuf[i];
-        f->fq_offset = (l4 == 0 || minc < 64) ? 33 : 64;
-      }
-      if (l4 > l2) l4 = l2;
-      memset(f->sc_quals, 0, (size_t)l2);
-      for (long i = 0; i < l4; i++) {
-        int q = (int)f->linebuf[i] - f->fq_offset;
-        f->sc_quals[i] = (uint8_t)(q < 0 ? 0 : (q > 255 ? 255 : q));
-      }
-      f->sc_len = (size_t)l2;
-      f->sc_off = 0;
-      f->sc_has_quals = true;
-    }
+  // drain a chunked record carried over from the previous batch, then
+  // chunk the following records (an empty record gives no row)
+  for (;;) {
     while (f->sc_len > f->sc_off && n < max_reads) {
       sc_emit(f, max_len, codes + (size_t)n * max_len,
               quals + (size_t)n * max_len, lens + n);
       n++;
     }
+    if (n == max_reads) return n;
+    int r = next_record(f, false);
+    if (r < 0) return -1;
+    if (r == 0) return n;
+  }
+}
+
+// Read up to max_reads whole records (never split or clipped) by the
+// Python reader's rules (next_record's `whole`): an empty record is a
+// record of length 0.  Record i's bases go to codes[o_i, o_i + lens[i])
+// with o_i the sum of the earlier lengths, and its phred scores alike
+// into quals (0 where the record has none); cap is the bytes each of
+// codes and quals holds.
+// Returns the number of records, 0 at the end of the file, -1 on a
+// parse error, and -2 when the next record alone is longer than cap:
+// lens[0] then holds its length, and the record waits for the next call.
+long mctx_seq_read_records(void *h, long max_reads, long cap,
+                           uint8_t *codes, uint8_t *quals, int32_t *lens) {
+  SeqFile *f = (SeqFile *)h;
+  long n = 0;
+  size_t used = 0;
+  while (n < max_reads) {
+    if (!f->held) {
+      int r = next_record(f, true);
+      if (r < 0) return -1;
+      if (r == 0) break;
+      f->held = true;
+    }
+    size_t len = f->sc_len;
+    if (used + len > (size_t)cap) {
+      if (n > 0) break;
+      lens[0] = (int32_t)len;
+      return -2;
+    }
+    if (len > 0) {
+      memcpy(codes + used, f->sc_codes, len);
+      if (f->sc_has_quals) memcpy(quals + used, f->sc_quals, len);
+      else memset(quals + used, 0, len);
+    }
+    lens[n++] = (int32_t)len;
+    used += len;
+    f->held = false;
   }
   return n;
 }

@@ -22,8 +22,10 @@ import pytest
 
 from mccortex_tpu.cli.main import main as mctx_main
 from mccortex_tpu_torch.cli.commands import _load_graph as tload
+from mccortex_tpu_torch import native as tnative
 from mccortex_tpu_torch.cli.main import main as port_main
 from mccortex_tpu_torch.io import ctp as tctp
+from mccortex_tpu_torch.utils import timing
 
 from test_torch_links import Recorder, replay
 
@@ -157,10 +159,20 @@ def _prev_links(capsys, data):
     return data["prev"]
 
 
-@pytest.mark.parametrize("case", list(THREAD))
-def test_thread_matches_mctx(capsys, data, case, monkeypatch):
+# every case reads through the C++ parser; with and without gap filling,
+# and with -Q, also through the Python one: the same .ctp bytes
+THREAD_READERS = [pytest.param(c, "native", id=c) for c in THREAD] + [
+    pytest.param(c, "python", id=f"{c}-python")
+    for c in ("no_gap_fill", "masks_and_gap_model")]
+
+
+@pytest.mark.parametrize("case,reader", THREAD_READERS)
+def test_thread_matches_mctx(capsys, data, case, reader, monkeypatch):
+    if reader == "python":
+        monkeypatch.setattr(tnative, "get_lib", lambda: None)
     (jp, jout, jerr, jrc), (tp, tout, terr, trc) = _thread(capsys, data, case,
                                                            monkeypatch)
+    assert timing.COUNTERS[f"read.{reader}"] == data["n"]
     assert jrc == trc == 0
     assert _text(tp[0]) == _text(jp[0])
     for j, t in zip(jp[1:], tp[1:]):

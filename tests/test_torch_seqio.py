@@ -2,7 +2,8 @@
 against mccortex_tpu's on the CPU: the native reader and the Python
 reader of the port give the batches of mccortex_tpu.io.seqio.
 read_batches_native on FASTA, FASTQ (+33, +64, a forced offset), gzip,
-SAM, BAM and CRAM; `mctx-torch build --device cpu` writes the .ctx
+SAM, BAM and CRAM, and those of its read_batches (whole records, batches
+across files) likewise; `mctx-torch build --device cpu` writes the .ctx
 bytes of `mctx build` from each format; the prefetch thread keeps its
 end marker and stops when its generator is abandoned.  Exact equality,
 no tolerance."""
@@ -23,6 +24,7 @@ from mccortex_tpu_torch.cli.main import main as port_main
 from mccortex_tpu_torch.io import cram as tcram
 from mccortex_tpu_torch.io import ctx as tctx
 from mccortex_tpu_torch.io import seqio as tseqio
+from mccortex_tpu_torch.utils import timing
 
 from test_cram import _craft_mapped_cram
 from test_sam_bam import write_bam, write_sam
@@ -79,6 +81,19 @@ def files(tmp_path_factory):
     with open(f["zeroq"], "w") as fh:
         for i in range(20):
             fh.write(f"@z{i}\n{_dna(rng, 60)}\n+\n{'!' * 60}\n")
+    # line ends and blanks, IUPAC and lower case, qualities shorter than
+    # their read, an empty record: the Python reader's rules
+    f["odd_fq"] = str(d / "odd.fq")
+    with open(f["odd_fq"], "w", newline="") as fh:
+        for i, r in enumerate(reads[:45]):
+            r = r[:50].lower() + "RYKMSWBDHV" + r[50:]
+            q = _quals(rng, len(r) - (i % 4) * 7, 33)
+            fh.write(f"@o{i}\r\n {r}\t\r\n+\r\n\t{q} \r\n")
+        fh.write("@none\r\n\r\n+\r\n\r\n")
+    f["odd_fa"] = str(d / "odd.fa")
+    with open(f["odd_fa"], "w", newline="") as fh:
+        for i, r in enumerate(reads[45:80]):
+            fh.write(f">a{i}\r\n{r[:30]}  \r\n\r\n\t{r[30:]}\r\n")
     sam = []
     for i, r in enumerate(reads[:60]):
         flag = (0x100, 0x800, 0, 16)[i % 4] if i < 8 else 0
@@ -154,6 +169,92 @@ def test_readers_match_jax_native(files, monkeypatch, name, fq_offset):
         assert any(c.shape[1] == MAX_LEN for c, _q, _c in want)
     if name == "zeroq":
         assert all(q is None for _c, q, _col in want)
+
+
+WHOLE_CASES = [(("fa",), 0, None), (("fa",), 0, 100), (("fq33",), 0, None),
+               (("fq64",), 0, None), (("fq64",), 33, None),
+               (("fq33",), 64, None), (("fqgz",), 0, None),
+               (("sam",), 0, None), (("sam_nohdr",), 0, None),
+               (("bam",), 0, None), (("cram",), 0, None),
+               (("zeroq",), 0, None), (("odd_fq",), 0, None),
+               (("odd_fa", "odd_fq"), 0, 120),
+               (("fq33", "cram", "fa", "sam", "bam"), 0, None)]
+
+
+@pytest.mark.parametrize(
+    "names,fq_offset,max_len", WHOLE_CASES,
+    ids=[f"{'+'.join(n)}-O{o}-L{m}" for n, o, m in WHOLE_CASES])
+def test_read_batches_match_jax_on_both_parsers(files, monkeypatch, names,
+                                                fq_offset, max_len):
+    """read_batches (thread's reader: whole records, clipped only to an
+    integer max_len, batches of 32 reads across files) from the C++
+    parser equals it from the Python parser and the JAX package's
+    read_batches (whose all-zero qualities come as zeros, not None);
+    CRAM parses in Python on both.  The counters count each parser's
+    reads."""
+    monkeypatch.setattr(jseqio, "FQ_OFFSET", fq_offset)
+    paths = [files[n] for n in names]
+    want = [(c, q if q is not None and q.any() else None, col)
+            for c, q, col in jseqio.read_batches(paths, 32, max_len, 3)]
+    nreads = {p: len(list(tseqio.parse_reads(p, fq_offset))) for p in paths}
+    in_cram = sum(n for p, n in nreads.items() if tseqio._is_cram(p))
+    for reader in ("native", "python"):
+        if reader == "python":
+            monkeypatch.setattr(tnative, "get_lib", lambda: None)
+        assert tseqio.reader_name() == reader
+        timing.reset()
+        got = list(tseqio.read_batches(paths, 32, max_len, 3,
+                                       fq_offset=fq_offset))
+        _same_batches(got, want)
+        assert sum(c.shape[0] for c, _q, _col in got) == sum(nreads.values())
+        native = sum(nreads.values()) - in_cram if reader == "native" else 0
+        assert (timing.COUNTERS["read.native"],
+                timing.COUNTERS["read.python"]) == \
+            (native, sum(nreads.values()) - native)
+    widths = [c.shape[1] for c, _q, _col in want]
+    if names == ("fa",):
+        # the long record whole, or clipped; the empty one a row of 4s
+        assert max(widths) == (max_len or 700)
+        assert any((c == 4).all(axis=1).any() for c, _q, _col in want)
+    if names == ("zeroq",):
+        assert all(q is None for _c, q, _col in want)
+    if len(names) > 1:     # a batch holds the end of one file and the next
+        assert len(want) == -(-sum(nreads.values()) // 32) < sum(
+            -(-n // 32) for n in nreads.values())
+
+
+def test_build_reader_unchanged_on_a_chunked_long_record(tmp_path):
+    """build's reader (read_batches_native) still splits a long record
+    into rows that share K bases, batches that never span files, and
+    keeps its own line rules (a '>' line with a tab is FASTA; blanks
+    inside a line are bases): the batches of the JAX package's native
+    reader, with and without prefetch."""
+    rng = np.random.default_rng(5)
+    long_seq = _dna(rng, 3000)
+    fa = tmp_path / "long.fa"
+    with open(fa, "w", newline="") as fh:
+        fh.write(">first\tdesc\r\n" + _dna(rng, 90) + " \r\n")
+        fh.write(">long\n")
+        for j in range(0, len(long_seq), 80):
+            fh.write(long_seq[j:j + 80] + "\n")
+        fh.write(">empty\n>short\n" + _dna(rng, 40) + "\n")
+    paths = [str(fa), str(fa)]
+    want = list(jseqio.read_batches_native(paths, 4, MAX_LEN, 1,
+                                           prefetch=0, overlap=K))
+    for prefetch in (0, 2):
+        _same_batches(list(tseqio.read_batches_native(
+            paths, 4, MAX_LEN, 1, prefetch=prefetch, overlap=K)), want)
+    rows = [r for c, _q, _col in want for r in c]
+    step = MAX_LEN - K
+    nchunks = -(-(len(long_seq) - K) // step)
+    # per file: the first record, the long one's chunks, the short one
+    assert len(rows) == 2 * (1 + nchunks + 1)
+    chunks = rows[1:1 + nchunks]
+    for a, b in zip(chunks, chunks[1:]):
+        np.testing.assert_array_equal(a[step:], b[:K])
+    got = np.concatenate([chunks[0]] + [c[K:] for c in chunks[1:]])
+    np.testing.assert_array_equal(got[:len(long_seq)], tseqio.CHAR_TO_BASE[
+        np.frombuffer(long_seq.encode(), np.uint8)])
 
 
 @pytest.mark.parametrize("name", ["fa", "fq64", "fqgz", "sam", "sam_nohdr",

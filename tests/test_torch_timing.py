@@ -157,9 +157,14 @@ def test_thread_counts_walker_steps_and_ctp_kmers(tiny, capsys):
     assert c["ctp.kmers_formatted"] >= c["ctp.kmers_written"] > 0
     assert {"align", "gaps", "walk", "bridge"} <= set(timing.SPANS)
     line = re.findall(r"time split: (.*)", capsys.readouterr().err)[-1]
-    # the graph's lookup table, built once (counter `table.keys`)
+    # every read through the C++ parser (counters `read.native`,
+    # `read.python`); the graph's lookup table, built once (`table.keys`)
+    with open(fq) as fh:
+        nreads = len(fh.read().splitlines()) // 4
+    assert (c["read.native"], c["read.python"]) == (nreads, 0)
     assert c["table.keys"] > 0
-    assert line.endswith(f"; counts: table.keys {c['table.keys']}, "
+    assert line.endswith(f"; counts: read.native {nreads}, read.python 0, "
+                         f"table.keys {c['table.keys']}, "
                          f"walk.fused 0, "
                          f"walk.plain {c['walk.plain']}, "
                          f"walk.steps {c['walk.steps']}, "
